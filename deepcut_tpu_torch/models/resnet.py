@@ -1,0 +1,310 @@
+"""DeeperCut part detector: the dilated fully-convolutional ResNet, in PyTorch.
+
+Counterpart of `deepcut_tpu.models.resnet`: conv1 7x7/2 -> BN/Scale/ReLU ->
+maxpool 3x3/2 (ceil) -> res2 .. res4 bottlenecks -> res5 (stride removed,
+3x3 convs dilated by 2) -> the deconv heads off res5c fused with 1x1 skip
+convs off res3b7 by a top-left crop and a sum. Output stride 8.
+
+Parameters are a dict keyed by the prototxt's Caffe layer names, each entry
+a dict of tensors in PyTorch layout (conv OIHW, deconv
+``(Cin, Cout, kh, kw)``); `models.convert.params_from_numpy` maps the JAX
+package's layouts onto it. `DeeperCut` holds such a dict as an
+``nn.Module``; tensors are NCHW (``channels_last`` memory on the card).
+
+As in the JAX package's serving path, the folded forward runs the trunk in
+``cfg.compute_dtype`` (bf16) with weights pre-cast and f32 biases, and the
+heads come out in f32 with the sigmoid in f32. Note the geometry traps:
+the stride sits on the 1x1 ``branch2a`` / ``branch1`` convs (not the 3x3 as
+in torchvision), and res5's 3x3 convs use dilation 2 with pad 2.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from deepcut_tpu.constants import MEAN_BGR
+from deepcut_tpu_torch.ops.activations import relu, sigmoid
+from deepcut_tpu_torch.ops.conv import conv2d, deconv2d
+from deepcut_tpu_torch.ops.eltwise import crop_like
+from deepcut_tpu_torch.ops.norm import bn_scale_affine, scaled_stats
+from deepcut_tpu_torch.ops.pool import max_pool2d
+
+Params = Dict[str, Dict[str, torch.Tensor]]
+
+
+def prepare_input(x: torch.Tensor) -> torch.Tensor:
+    """A uint8 BGR batch (N, 3, H, W) is converted and mean-subtracted on
+    its device; a float batch is taken as already mean-subtracted."""
+    if x.dtype == torch.uint8:
+        mean = torch.tensor(MEAN_BGR, dtype=torch.float32, device=x.device)
+        return x.float() - mean.reshape(1, 3, 1, 1)
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class DeeperCutConfig:
+    """Model family config. Defaults = the reference ResNet-152 part detector."""
+
+    depths: Tuple[int, ...] = (3, 8, 36, 3)
+    stage_widths: Tuple[int, ...] = (64, 128, 256, 512)
+    # Per-stage (stride, dilation): res5's stride is removed and its 3x3
+    # convs dilated by 2.
+    stage_strides: Tuple[int, ...] = (1, 2, 2, 1)
+    stage_dilations: Tuple[int, ...] = (1, 1, 1, 2)
+    num_joints: int = 14
+    location_refinement: bool = True
+    pairwise: bool = True
+    # "letters" (res3b, res3c...) for ResNet-50, "numbered" (res3b1...) for 101/152.
+    naming: str = "numbered"
+    bn_eps: float = 1e-5
+    compute_dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def stride(self) -> int:
+        return 8
+
+    @property
+    def locref_channels(self) -> int:
+        return 2 * self.num_joints
+
+    @property
+    def pairwise_channels(self) -> int:
+        return self.num_joints * (self.num_joints - 1) * 2
+
+
+RESNET_DEPTHS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
+
+
+def deepercut_config(resnet_depth: int = 152, **kw) -> DeeperCutConfig:
+    naming = "letters" if resnet_depth == 50 else "numbered"
+    return DeeperCutConfig(depths=RESNET_DEPTHS[resnet_depth], naming=naming, **kw)
+
+
+def _block_names(cfg: DeeperCutConfig, stage: int) -> List[str]:
+    """Caffe/MSRA block names for stage index (0-based; stage label = idx+2)."""
+    n = cfg.depths[stage]
+    label = stage + 2
+    if cfg.naming == "letters" or n <= 3:
+        return [f"{label}{chr(ord('a') + i)}" for i in range(n)]
+    return [f"{label}a"] + [f"{label}b{i}" for i in range(1, n)]
+
+
+def _skip_block(cfg: DeeperCutConfig) -> Optional[str]:
+    """The stride-8 skip tap: last block of stage 3 (res3b7 in ResNet-152)."""
+    names = _block_names(cfg, 1)
+    return names[-1] if names else None
+
+
+def _head_channels(cfg: DeeperCutConfig) -> List[Tuple[str, int]]:
+    heads = [("pose", cfg.num_joints)]
+    if cfg.location_refinement:
+        heads.append(("locref", cfg.locref_channels))
+    if cfg.pairwise:
+        heads.append(("next", cfg.pairwise_channels))
+    return heads
+
+
+# --------------------------------------------------------------------------
+# Parameter initialisation (Caffe filler semantics)
+# --------------------------------------------------------------------------
+
+
+def init_params(generator: torch.Generator, cfg: DeeperCutConfig = DeeperCutConfig()) -> Params:
+    """Random init mirroring the reference's filler choices: MSRA convs,
+    gaussian std-0.01 heads with zero bias, identity BN statistics. f32 on
+    the CPU. The numbers differ from the JAX package's `jax.random` init;
+    parity tests feed both packages the same numpy params instead."""
+    params: Params = {}
+
+    def normal(shape, std):
+        return std * torch.randn(shape, generator=generator, dtype=torch.float32)
+
+    def add_conv(name, kh, kw, cin, cout):
+        params[name] = {"w": normal((cout, cin, kh, kw), math.sqrt(2.0 / (kh * kw * cin)))}
+
+    def add_bn_scale(suffix, c):
+        params[f"bn{suffix}"] = {"mean": torch.zeros(c), "var": torch.ones(c),
+                                 "scale_factor": torch.ones(1)}
+        params[f"scale{suffix}"] = {"gamma": torch.ones(c), "beta": torch.zeros(c)}
+
+    add_conv("conv1", 7, 7, 3, 64)
+    add_bn_scale("_conv1", 64)
+    cin = 64
+    for stage in range(4):
+        width = cfg.stage_widths[stage]
+        cout = 4 * width
+        for bi, block in enumerate(_block_names(cfg, stage)):
+            if bi == 0:
+                add_conv(f"res{block}_branch1", 1, 1, cin, cout)
+                add_bn_scale(f"{block}_branch1", cout)
+            add_conv(f"res{block}_branch2a", 1, 1, cin if bi == 0 else cout, width)
+            add_bn_scale(f"{block}_branch2a", width)
+            add_conv(f"res{block}_branch2b", 3, 3, width, width)
+            add_bn_scale(f"{block}_branch2b", width)
+            add_conv(f"res{block}_branch2c", 1, 1, width, cout)
+            add_bn_scale(f"{block}_branch2c", cout)
+        cin = cout
+
+    skip_c = 4 * cfg.stage_widths[1]  # stride-8 tap channels (512)
+    top_c = 4 * cfg.stage_widths[3]   # res5 output channels (2048)
+    for head, ch in _head_channels(cfg):
+        params[f"res5c_up_{head}"] = {"w": normal((top_c, ch, 3, 3), 0.01),
+                                      "b": torch.zeros(ch)}
+        params[f"res3d_{head}"] = {"w": normal((ch, skip_c, 1, 1), 0.01),
+                                   "b": torch.zeros(ch)}
+    return params
+
+
+# --------------------------------------------------------------------------
+# BN/Scale folding — the inference path
+# --------------------------------------------------------------------------
+
+
+def cast_params(params: Params, dtype: torch.dtype = torch.bfloat16) -> Params:
+    """Pre-cast conv weights to the compute dtype once at load; biases and
+    every other entry stay as they are (f32)."""
+    return {name: {k: (v.to(dtype) if k == "w" else v) for k, v in p.items()}
+            for name, p in params.items()}
+
+
+def _bn_key(name: str, params: Params) -> Optional[str]:
+    """The BN/Scale suffix that follows conv `name`, or None (the heads)."""
+    if name == "conv1":
+        return "_conv1"
+    if name.startswith("res") and f"bn{name[len('res'):]}" in params:
+        return name[len("res"):]
+    return None
+
+
+def fold_bn(params: Params, cfg: DeeperCutConfig = DeeperCutConfig()) -> Params:
+    """Fold each conv's trailing BatchNorm+Scale into (w, b).
+
+    y = gamma * (conv(x, w) - mean/s) * rsqrt(var/s + eps) + beta
+      = conv(x, w * g) + (beta - mean/s * g),   g = gamma * rsqrt(var/s + eps)
+
+    A scale factor s of 0 gives zero statistics, as in Caffe."""
+    folded: Params = {}
+    for name, p in params.items():
+        if name.startswith("bn") or name.startswith("scale"):
+            continue
+        key = _bn_key(name, params)
+        if key is None or f"bn{key}" not in params:
+            folded[name] = dict(p)
+            continue
+        bn, sc = params[f"bn{key}"], params[f"scale{key}"]
+        mean, var = scaled_stats(bn["mean"], bn["var"], bn.get("scale_factor"))
+        g = sc["gamma"] * torch.rsqrt(var + cfg.bn_eps)
+        b = p["b"] if "b" in p else torch.zeros_like(g)
+        folded[name] = {"w": p["w"] * g.reshape(-1, 1, 1, 1),
+                        "b": b + sc["beta"] - mean * g}
+    return folded
+
+
+# --------------------------------------------------------------------------
+# The module
+# --------------------------------------------------------------------------
+
+
+class DeeperCut(nn.Module):
+    """The part detector over a Caffe-named param dict.
+
+    folded=True takes BN-folded params (`fold_bn`, usually `cast_params`'d)
+    and computes in ``cfg.compute_dtype``; folded=False takes the raw
+    params with BN/Scale entries and computes in f32. Parameters are frozen
+    (inference only)."""
+
+    def __init__(self, params: Params, cfg: DeeperCutConfig = DeeperCutConfig(),
+                 *, folded: bool = True):
+        super().__init__()
+        self.cfg = cfg
+        self.folded = folded
+        self.layers = nn.ModuleDict({
+            name: nn.ParameterDict({k: nn.Parameter(torch.as_tensor(v), requires_grad=False)
+                                    for k, v in p.items()})
+            for name, p in params.items()})
+        self._cdt = cfg.compute_dtype if folded else None
+
+    def _cbr(self, x, name, *, stride=1, pad=0, dilation=1, act=True):
+        p = self.layers[name]
+        y = conv2d(x, p["w"], p["b"] if "b" in p else None, stride=stride,
+                   pad=pad, dilation=dilation, compute_dtype=self._cdt)
+        if not self.folded:
+            key = _bn_key(name, self.layers)
+            bn, sc = self.layers[f"bn{key}"], self.layers[f"scale{key}"]
+            y = bn_scale_affine(y, bn["mean"], bn["var"],
+                                bn["scale_factor"] if "scale_factor" in bn else None,
+                                sc["gamma"], sc["beta"] if "beta" in sc else None,
+                                eps=self.cfg.bn_eps)
+        return relu(y) if act else y
+
+    def run_trunk(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """conv1 .. res5c over a mean-subtracted (N, 3, H, W) batch (or a
+        uint8 one, see `prepare_input`). Returns (res5c, skip tap)."""
+        cfg = self.cfg
+        x = prepare_input(x).to(cfg.compute_dtype if self.folded else torch.float32)
+        y = self._cbr(x, "conv1", stride=2, pad=3)
+        y = max_pool2d(y, kernel=3, stride=2)
+        skip, skip_name = None, _skip_block(cfg)
+        for stage in range(4):
+            s, d = cfg.stage_strides[stage], cfg.stage_dilations[stage]
+            for bi, block in enumerate(_block_names(cfg, stage)):
+                bs = s if bi == 0 else 1
+                if bi == 0:
+                    shortcut = self._cbr(y, f"res{block}_branch1", stride=bs, act=False)
+                else:
+                    shortcut = y
+                z = self._cbr(y, f"res{block}_branch2a", stride=bs)
+                z = self._cbr(z, f"res{block}_branch2b", pad=d, dilation=d)
+                z = self._cbr(z, f"res{block}_branch2c", act=False)
+                y = relu(shortcut + z)
+                if block == skip_name:
+                    skip = y
+        return y, skip
+
+    def compute_heads(self, res5c: torch.Tensor, skip: torch.Tensor,
+                      heads: Optional[Sequence[str]] = None) -> Dict[str, torch.Tensor]:
+        """The enabled heads as ONE deconv (k3 s2 p0) over res5c plus ONE 1x1
+        skip conv, over concatenated output channels, summed after a top-left
+        crop of the upsampled map; then sliced per head.
+
+        heads: optional subset of ("pose", "locref", "next"); "pose" is
+        mandatory. Returns f32 contiguous NCHW maps: 'fc_pose', 'prob'
+        (sigmoid, in f32) and, when computed, 'loc_pred' and 'next_pred'."""
+        if skip is None:
+            raise ValueError("compute_heads: the config has no stride-8 skip tap")
+        head_list = _head_channels(self.cfg)
+        if heads is not None:
+            head_list = [(n, ch) for n, ch in head_list if n in heads]
+            if not any(n == "pose" for n, _ in head_list):
+                raise ValueError("compute_heads: the 'pose' head is mandatory")
+        up_p = [self.layers[f"res5c_up_{n}"] for n, _ in head_list]
+        sk_p = [self.layers[f"res3d_{n}"] for n, _ in head_list]
+        wup = torch.cat([p["w"] for p in up_p], dim=1)
+        bup = torch.cat([p["b"] for p in up_p])
+        wsk = torch.cat([p["w"] for p in sk_p], dim=0)
+        bsk = torch.cat([p["b"] for p in sk_p])
+        up = deconv2d(res5c, wup, bup, stride=2, compute_dtype=self._cdt)
+        sk = conv2d(skip, wsk, bsk, compute_dtype=self._cdt)
+        fused = crop_like(up, sk.shape, axis=2) + sk
+
+        names = {"pose": "fc_pose", "locref": "loc_pred", "next": "next_pred"}
+        outs: Dict[str, torch.Tensor] = {}
+        off = 0
+        for n, ch in head_list:
+            outs[names[n]] = fused[:, off:off + ch].to(
+                torch.float32, memory_format=torch.contiguous_format)
+            off += ch
+        outs["prob"] = sigmoid(outs["fc_pose"])
+        return outs
+
+    def forward(self, x: torch.Tensor, heads: Optional[Sequence[str]] = None
+                ) -> Dict[str, torch.Tensor]:
+        """x: (N, 3, H, W) mean-subtracted BGR (or uint8). Returns the
+        `compute_heads` dict; h = ceil(H/8) grid as in the reference."""
+        res5c, skip = self.run_trunk(x)
+        return self.compute_heads(res5c, skip, heads=heads)

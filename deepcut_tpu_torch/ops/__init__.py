@@ -1,0 +1,12 @@
+"""Op library on NCHW tensors (the counterparts of `deepcut_tpu.ops`).
+
+Convolutions, deconvolution and pooling go to PyTorch / cuDNN, as the JAX
+package left them to XLA outside any Pallas kernel. The one hand-written
+kernel is the fused pose decode in `cuda_decode`.
+"""
+
+from deepcut_tpu_torch.ops.conv import conv2d, deconv2d, conv_output_size, deconv_output_size
+from deepcut_tpu_torch.ops.pool import max_pool2d, pool_output_size
+from deepcut_tpu_torch.ops.norm import batch_norm_inference, bn_scale_affine
+from deepcut_tpu_torch.ops.activations import relu, sigmoid
+from deepcut_tpu_torch.ops.eltwise import crop_like

@@ -1,0 +1,397 @@
+"""Full-image pose estimation pipeline, in PyTorch.
+
+Counterpart of `deepcut_tpu.pose.estimate`. Per scale, as in the reference
+(estimate_pose.py:81-128): pad 64 px bottom/right by edge replication,
+bilinear-resize by the scale with PIL's rounding, subtract the BGR mean,
+paste into a stride-aligned zero canvas, run the CNN (tiled above 700 px
+with 224 px of receptive-field overlap), then the argmax + offset decode;
+the best scale by its lowest joint confidence wins.
+
+On the device: the preprocess (f32 interpolation-matrix products), the
+network, and the decode, which is the hand-written CUDA kernel
+(`ops.cuda_decode`) on a CUDA device, so only the 5 x J pose crosses back to
+the host. Canvas sizes are rounded up to a bucket grid with the argmax
+masked to each image's true grid, as in the JAX package; in place of its
+per-bucket jit programs this estimator keeps a per-size cache of
+device-resident bilinear matrices. The tiling plan is the JAX package's
+stride-aligned one (see `_tile_plan`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from deepcut_tpu.constants import MEAN_BGR
+from deepcut_tpu_torch.models.resnet import (
+    DeeperCut, DeeperCutConfig, Params, cast_params, deepercut_config, fold_bn)
+from deepcut_tpu_torch.ops import cuda_decode
+from deepcut_tpu_torch.pose.decode import STRIDE
+
+PAD_SIZE = 64                     # estimate_pose.py:89
+MAX_SIZE = 700                    # _MAX_SIZE, estimate_pose.py:29
+RF = 224                          # receptive field, estimate_pose.py:162
+HEADS = ("pose", "locref")        # what the single-person decode reads
+
+
+def canvas_size(dim: int, scale: float) -> int:
+    """ceil(dim*scale/8)*8 (estimate_pose.py:85-88)."""
+    return int(math.ceil(dim * scale / STRIDE) * STRIDE)
+
+
+def _bucket(v: int, step: int = 64) -> int:
+    return int(math.ceil(v / step) * step)
+
+
+def _resized_size(dim: int, scale: float) -> int:
+    # scipy.misc.imresize with a float scale TRUNCATES the target size
+    # ((np.array(im.size) * scale).astype(int)); round() would disagree with
+    # the reference's resample grid whenever frac >= 0.5
+    return int((dim + PAD_SIZE) * scale)
+
+
+def _bilinear_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """PIL-style bilinear resampling matrix (out, in): triangle filter with
+    support widened by in/out on downscale (antialiasing), weights
+    normalised — matches scipy.misc.imresize's PIL backend closely."""
+    scale = in_size / out_size
+    fscale = max(scale, 1.0)
+    A = np.zeros((out_size, in_size), np.float32)
+    support = fscale  # triangle filter radius 1 scaled
+    for i in range(out_size):
+        center = (i + 0.5) * scale - 0.5
+        lo = int(math.floor(center - support))
+        hi = int(math.ceil(center + support))
+        xs = np.arange(max(lo, 0), min(hi + 1, in_size))
+        w = 1.0 - np.abs((xs - center) / fscale)
+        w = np.clip(w, 0.0, None)
+        s = w.sum()
+        if s > 0:
+            A[i, xs] = w / s
+        else:
+            A[i, np.clip(int(round(center)), 0, in_size - 1)] = 1.0
+    return A
+
+
+def _round_half_up(x: torch.Tensor) -> torch.Tensor:
+    # PIL's fixed-point accumulate rounds HALF-UP; torch.round is
+    # half-to-even, and exact .5 ties occur whenever in/out has a small
+    # denominator
+    return torch.clamp(torch.floor(x + 0.5), 0.0, 255.0)
+
+
+def preprocess_on_device(image_u8: torch.Tensor, out_h: int, out_w: int,
+                         canvas_h: int, canvas_w: int,
+                         matrices: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                         ) -> torch.Tensor:
+    """uint8 BGR (H, W, 3) on the device -> f32 canvas (1, canvas_h, canvas_w, 3).
+
+    Edge-replicate 64 px pad (bottom/right), bilinear resize to
+    (out_h, out_w) by two interpolation-matrix products in f32, each pass
+    rounded half-up to integers as PIL does on uint8, mean subtraction,
+    top-left paste into a zero canvas (crop on overflow). At scale 1 the
+    resize is skipped exactly. `matrices` optionally passes the (Ah, Aw)
+    resampling matrices already on the device; they are made here otherwise.
+    """
+    dev = image_u8.device
+    h, w = int(image_u8.shape[0]), int(image_u8.shape[1])
+    ph, pw = h + PAD_SIZE, w + PAD_SIZE
+    rows = torch.clamp(torch.arange(ph, device=dev), max=h - 1)
+    cols = torch.clamp(torch.arange(pw, device=dev), max=w - 1)
+    img = image_u8[rows][:, cols].to(torch.float32)
+    if (out_h, out_w) != (ph, pw):
+        if matrices is None:
+            matrices = (torch.from_numpy(_bilinear_matrix(ph, out_h)).to(dev),
+                        torch.from_numpy(_bilinear_matrix(pw, out_w)).to(dev))
+        Ah, Aw = matrices
+        img = _round_half_up(torch.einsum("ow,hwc->hoc", Aw, img))
+        img = _round_half_up(torch.einsum("oh,hwc->owc", Ah, img))
+    img = img - torch.tensor(MEAN_BGR, dtype=torch.float32, device=dev)
+    ch, cw = min(canvas_h, out_h), min(canvas_w, out_w)
+    canvas = torch.zeros((1, canvas_h, canvas_w, 3), dtype=torch.float32, device=dev)
+    canvas[0, :ch, :cw] = img[:ch, :cw]
+    return canvas
+
+
+class PoseEstimator:
+    """DeeperCut pose estimator on one device (``"cuda"`` by default).
+
+    params: the port's Caffe-named torch param dict (`models.resnet.init_params`
+    or `models.convert.params_from_numpy`). With folded=True (serving) BN is
+    folded and conv weights cast to ``cfg.compute_dtype``; folded=False
+    keeps the raw f32 forward."""
+
+    # Frames per CNN chunk in the batched paths. The value was tuned for the
+    # TPU; results do not depend on it, and it has not been retuned for the
+    # card yet.
+    BATCH_CHUNK = 4
+
+    def __init__(self, params: Params, cfg: Optional[DeeperCutConfig] = None, *,
+                 folded: bool = True, bucket_step: int = 64,
+                 max_size: int = MAX_SIZE, device="cuda"):
+        self.cfg = cfg or deepercut_config(152)
+        self.device = torch.device(device)
+        if folded:
+            if any(k.startswith("bn") for k in params):
+                params = fold_bn(params, self.cfg)
+            params = cast_params(params, self.cfg.compute_dtype)
+        self.folded = folded
+        self.model = DeeperCut(params, self.cfg, folded=folded).to(
+            self.device, memory_format=torch.channels_last)
+        self.bucket_step = bucket_step
+        self.max_size = max_size
+        self._matrices: Dict[Tuple[int, int], torch.Tensor] = {}
+
+    # -- device pieces -----------------------------------------------------
+    def _matrix(self, in_size: int, out_size: int) -> torch.Tensor:
+        key = (in_size, out_size)
+        if key not in self._matrices:
+            self._matrices[key] = torch.from_numpy(
+                _bilinear_matrix(in_size, out_size)).to(self.device)
+        return self._matrices[key]
+
+    def _canvas(self, image: np.ndarray, scale: float, canvas_h: int,
+                canvas_w: int) -> torch.Tensor:
+        """Host frame -> (1, canvas_h, canvas_w, 3) f32 canvas on the device."""
+        h, w = image.shape[:2]
+        out_h, out_w = _resized_size(h, scale), _resized_size(w, scale)
+        u8 = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
+        mats = None
+        if (out_h, out_w) != (h + PAD_SIZE, w + PAD_SIZE):
+            mats = (self._matrix(h + PAD_SIZE, out_h), self._matrix(w + PAD_SIZE, out_w))
+        return preprocess_on_device(u8, out_h, out_w, canvas_h, canvas_w, mats)
+
+    def _maps(self, canvases: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(N, H, W, 3) f32 canvases -> prob (N, J, h, w), loc (N, 2J, h, w),
+        both f32 contiguous. The NHWC -> NCHW permute gives the channels_last
+        memory the convs take."""
+        with torch.inference_mode():
+            outs = self.model(canvases.permute(0, 3, 1, 2), heads=HEADS)
+        return outs["prob"], outs["loc_pred"]
+
+    def _decode(self, prob: torch.Tensor, loc: torch.Tensor, valid_h: Sequence[int],
+                valid_w: Sequence[int], scale: float) -> torch.Tensor:
+        """Masked decode of each image's ceil(valid/8) cell grid: the CUDA
+        kernel on the card, the plain version on the CPU."""
+        vh, vw = (torch.tensor([-(-int(v) // int(STRIDE)) for v in valid], dtype=torch.int32,
+                               device=self.device) for valid in (valid_h, valid_w))
+        return cuda_decode.decode_pose(prob, loc, vh, vw, scale)
+
+    def _decode_whole(self, prob: torch.Tensor, loc: torch.Tensor, scale: float) -> np.ndarray:
+        """Unmasked decode of one image's (J, h, w) / (2J, h, w) maps -> (5, J)."""
+        h, w = prob.shape[1:]
+        pose = cuda_decode.decode_pose(
+            prob[None].contiguous(), loc[None].contiguous(),
+            torch.full((1,), h, dtype=torch.int32, device=self.device),
+            torch.full((1,), w, dtype=torch.int32, device=self.device), scale)
+        return pose[0].cpu().numpy()
+
+    def _batched(self, canvases: torch.Tensor, valid_h: Sequence[int],
+                 valid_w: Sequence[int], scale: float) -> np.ndarray:
+        """CNN + decode over a canvas batch in BATCH_CHUNK chunks -> (N, 5, J)."""
+        c = self.BATCH_CHUNK
+        poses = []
+        for i in range(0, canvases.shape[0], c):
+            prob, loc = self._maps(canvases[i:i + c])
+            poses.append(self._decode(prob, loc, valid_h[i:i + c], valid_w[i:i + c], scale))
+        return torch.cat(poses).cpu().numpy()
+
+    # -- public API --------------------------------------------------------
+    def estimate_pose(self, image: np.ndarray, scales: Optional[Sequence[float]] = None
+                      ) -> Optional[np.ndarray]:
+        """image: HxWx3 BGR uint8. Returns the reference's 5xJ pose
+        [x, y, conf, off_y, off_x], best scale by min-confidence, or None
+        when every scale's lowest joint confidence is exactly 0 (the
+        reference starts its best confidence at 0)."""
+        best_pose, best_conf = None, 0.0
+        for s in scales or [1.0]:
+            pose = self._estimate_single_scale(image, s)
+            minconf = float(np.min(pose[2]))
+            if minconf > best_conf:
+                best_conf, best_pose = minconf, pose
+        return best_pose
+
+    def _estimate_single_scale(self, image: np.ndarray, scale: float) -> np.ndarray:
+        h, w = image.shape[:2]
+        ch, cw = canvas_size(h, scale), canvas_size(w, scale)
+        if ch > self.max_size or cw > self.max_size:
+            return self._decode_whole(*self._scoremaps_tiled(image, scale), scale)
+        bh, bw = _bucket(ch, self.bucket_step), _bucket(cw, self.bucket_step)
+        return self._batched(self._canvas(image, scale, bh, bw), [ch], [cw], scale)[0]
+
+    def estimate_pose_batch(self, images: Sequence[np.ndarray],
+                            scale: float = 1.0) -> np.ndarray:
+        """Batched inference for same-size frames (video serving); returns
+        (N, 5, J). All frames must share H x W and fit one canvas."""
+        h, w = images[0].shape[:2]
+        for im in images:
+            if im.shape[:2] != (h, w):
+                raise ValueError("estimate_pose_batch needs equal frame sizes")
+        ch, cw = canvas_size(h, scale), canvas_size(w, scale)
+        bh, bw = _bucket(ch, self.bucket_step), _bucket(cw, self.bucket_step)
+        canvases = torch.cat([self._canvas(im, scale, bh, bw) for im in images])
+        n = len(images)
+        return self._batched(canvases, [ch] * n, [cw] * n, scale)
+
+    def estimate_pose_many(self, images: Sequence[np.ndarray],
+                           scale: float = 1.0) -> np.ndarray:
+        """Mixed-size batched serving: images are grouped by canvas bucket,
+        each group runs batched with per-image valid extents (the decode
+        masks each image's own grid), and oversized frames take the tiled
+        single path. Returns (N, 5, J) in input order; per-image results
+        equal estimate_pose(image, [scale]) up to the batch's rounding."""
+        out = np.zeros((len(images), 5, self.cfg.num_joints), np.float32)
+        groups: Dict[Tuple[int, int], list] = {}
+        for idx, im in enumerate(images):
+            h, w = im.shape[:2]
+            ch, cw = canvas_size(h, scale), canvas_size(w, scale)
+            if ch > self.max_size or cw > self.max_size:  # HD: tiled single path
+                out[idx] = self._estimate_single_scale(im, scale)
+                continue
+            bh, bw = _bucket(ch, self.bucket_step), _bucket(cw, self.bucket_step)
+            groups.setdefault((bh, bw), []).append((idx, im, ch, cw))
+        for (bh, bw), items in groups.items():
+            canvases = torch.cat([self._canvas(im, scale, bh, bw) for _, im, _, _ in items])
+            poses = self._batched(canvases, [it[2] for it in items],
+                                  [it[3] for it in items], scale)
+            for slot, (idx, *_rest) in enumerate(items):
+                out[idx] = poses[slot]
+        return out
+
+    def estimate_pose_avg(self, image: np.ndarray, scales: Sequence[float]) -> np.ndarray:
+        """Multi-scale pyramid with SCOREMAP AVERAGING: each scale's maps are
+        resampled to the scale-1 grid by interpolation-matrix products on the
+        device and averaged before one decode."""
+        h, w = image.shape[:2]
+        gh = canvas_size(h, 1.0) // int(STRIDE)
+        gw = canvas_size(w, 1.0) // int(STRIDE)
+        acc_sm = acc_loc = None
+        for s in scales:
+            sm, loc = self._scoremaps_dev(image, s)
+            Ah = self._matrix(int(sm.shape[1]), gh)
+            Aw = self._matrix(int(sm.shape[2]), gw)
+
+            def resample(m):
+                m = torch.einsum("ow,chw->cho", Aw, m)
+                return torch.einsum("oh,chw->cow", Ah, m)
+            acc_sm = resample(sm) if acc_sm is None else acc_sm + resample(sm)
+            lr = resample(loc) / s
+            acc_loc = lr if acc_loc is None else acc_loc + lr
+        n = float(len(scales))
+        return self._decode_whole(acc_sm / n, acc_loc / n, 1.0)
+
+    def scoremaps(self, image: np.ndarray, scale: float = 1.0) -> Tuple[np.ndarray, np.ndarray]:
+        """Full scoremaps + locref for an image, host numpy in the JAX
+        package's layout: (h, w, J) and (h, w, 2J). HD frames are tiled."""
+        sm, loc = self._scoremaps_dev(image, scale)
+        return (sm.permute(1, 2, 0).cpu().numpy(), loc.permute(1, 2, 0).cpu().numpy())
+
+    def _scoremaps_dev(self, image: np.ndarray, scale: float = 1.0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Device-resident (J, h, w) and (2J, h, w) maps on the unbucketed
+        canvas, cropped to its ceil(canvas/8) cell grid."""
+        h, w = image.shape[:2]
+        ch, cw = canvas_size(h, scale), canvas_size(w, scale)
+        if ch > self.max_size or cw > self.max_size:
+            return self._scoremaps_tiled(image, scale)
+        prob, loc = self._maps(self._canvas(image, scale, ch, cw))
+        gh = ch // int(STRIDE)
+        return prob[0, :, :gh], loc[0, :, :gh]
+
+    # -- tiling (estimate_pose.py:146-221, STRIDE-ALIGNED correction) -----
+    def _scoremaps_tiled(self, image: np.ndarray, scale: float
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """HD scoremaps from tiles of at most max_size px, on the device.
+        Tile origins sit on the stride-8 grid and the kept cells partition
+        the global grid exactly (`_tile_plan`), so the result lands on the
+        same grid as the full-frame computation."""
+        h, w = image.shape[:2]
+        ch, cw = canvas_size(h, scale), canvas_size(w, scale)
+        canvas = self._canvas(image, scale, ch, cw)
+        stride = int(STRIDE)
+        rows_sm, rows_loc = [], []
+        for (sy, ey, ay, by) in _tile_plan(ch, self.max_size):
+            row_sm, row_loc = [], []
+            for (sx, ex, ax, bx) in _tile_plan(cw, self.max_size):
+                th = -(-(ey - sy) // stride) * stride
+                tw = -(-(ex - sx) // stride) * stride
+                buf = torch.zeros((1, th, tw, 3), dtype=torch.float32, device=self.device)
+                buf[:, :ey - sy, :ex - sx] = canvas[:, sy:ey, sx:ex]
+                prob, loc = self._maps(buf)
+                row_sm.append(prob[0, :, ay:by, ax:bx])
+                row_loc.append(loc[0, :, ay:by, ax:bx])
+            rows_sm.append(torch.cat(row_sm, dim=2))
+            rows_loc.append(torch.cat(row_loc, dim=2))
+        return torch.cat(rows_sm, dim=1).contiguous(), torch.cat(rows_loc, dim=1).contiguous()
+
+
+def _num_tiles(length: int, max_size: int, rf: int) -> int:
+    """The reference's tile-count formula (estimate_pose.py:146-156), kept as
+    a parity oracle; the tiled path uses `_tile_plan`, whose stride-aligned
+    step can need one more tile."""
+    if length <= max_size:
+        return 1
+    k = 0
+    while True:
+        new_size = (max_size - rf) * 2 + (max_size - 2 * rf) * k
+        if new_size > length:
+            break
+        k += 1
+    return 2 + k
+
+
+def _tile_plan(length: int, max_size: int) -> List[Tuple[int, int, int, int]]:
+    """Stride-aligned tiling plan: list of (start_px, end_px, keep_from_cell,
+    keep_to_cell). Keep ranges are tile-local and partition the global
+    ceil(length/STRIDE) cell grid exactly; tile origins are multiples of
+    STRIDE; every kept cell has at least RF pixels of context inside its
+    tile except at the frame borders."""
+    stride, rf = int(STRIDE), int(RF)
+    grid = -(-length // stride)
+    if length <= max_size:
+        return [(0, length, 0, grid)]
+    cut = rf // stride
+    step = ((max_size - 2 * rf) // stride) * stride
+    n = -(-(length - max_size) // step) + 1
+    plan = []
+    for i in range(n):
+        s = i * step
+        e = min(s + max_size, length)
+        o = s // stride
+        a = 0 if i == 0 else o + cut
+        b = grid if i == n - 1 else (i + 1) * step // stride + cut
+        plan.append((s, e, a - o, b - o))
+    return plan
+
+
+_MODEL_CACHE: Dict = {}
+
+
+def get_estimator(model_def: str = "", model_bin: str = "", device="cuda") -> PoseEstimator:
+    """Cached PoseEstimator for (model_def, model_bin, device) — the
+    module-global model cache of the reference (estimate_pose.py:69-75).
+    With no weights the model is the random init of a seeded generator."""
+    key = (model_def, model_bin, str(torch.device(device)))
+    if key not in _MODEL_CACHE:
+        if model_bin:
+            from deepcut_tpu.proto.caffemodel import load_deepercut_params
+            from deepcut_tpu_torch.models.convert import params_from_numpy
+
+            params = params_from_numpy(load_deepercut_params(model_bin))
+        else:
+            from deepcut_tpu_torch.models.resnet import init_params
+
+            params = init_params(torch.Generator().manual_seed(0), deepercut_config(152))
+        _MODEL_CACHE[key] = PoseEstimator(params, device=device)
+    return _MODEL_CACHE[key]
+
+
+def estimate_pose(image: np.ndarray, model_def: str = "", model_bin: str = "",
+                  scales: Optional[Sequence[float]] = None, device="cuda"
+                  ) -> Optional[np.ndarray]:
+    """Reference-compatible convenience wrapper (estimate_pose.py:37); the
+    model is cached module-globally like the reference's _MODEL."""
+    return get_estimator(model_def, model_bin, device).estimate_pose(image, scales)

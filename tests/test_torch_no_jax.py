@@ -1,0 +1,56 @@
+"""The port never imports jax: the machine with the card has none installed.
+
+A subprocess blocks `jax` (``sys.modules['jax'] = None`` makes every import
+of it raise), imports every module of `deepcut_tpu_torch`, and runs one tiny
+CPU `estimate_pose`, its demo CLI included.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parents[1]
+
+SCRIPT = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+import numpy as np, torch
+import deepcut_tpu_torch
+
+names = [m.name for m in pkgutil.walk_packages(deepcut_tpu_torch.__path__, "deepcut_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert "jax" not in {m.split(".")[0] for m, mod in sys.modules.items() if mod is not None}
+
+from deepcut_tpu_torch.models.resnet import DeeperCutConfig, init_params
+from deepcut_tpu_torch.pose import estimate, demo
+from deepcut_tpu_torch.ops import cuda_decode
+
+cfg = DeeperCutConfig(depths=(1, 1, 1, 1), stage_widths=(4, 4, 8, 8), num_joints=3)
+params = init_params(torch.Generator().manual_seed(0), cfg)
+est = estimate.PoseEstimator(params, cfg, device="cpu")  # folded, bf16 trunk
+img = np.random.RandomState(0).randint(0, 256, (70, 90, 3), np.uint8)
+pose = est.estimate_pose(img)
+assert pose.shape == (5, 3) and np.isfinite(pose).all(), pose
+assert cuda_decode.launches == 0
+estimate._MODEL_CACHE[("", "", "cpu")] = est
+from PIL import Image
+Image.fromarray(img[:, :, ::-1]).save(sys.argv[1])
+assert demo.main([sys.argv[1], "--device", "cpu", "--out_name", sys.argv[2]]) == 0
+print("modules", len(names))
+"""
+
+
+def test_port_imports_and_runs_without_jax(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT, str(tmp_path / "f.png"), str(tmp_path / "p.npz")],
+        env=env, capture_output=True, text=True, timeout=300, cwd=str(tmp_path))
+    assert proc.returncode == 0, proc.stdout + proc.stderr[-4000:]
+    assert int(proc.stdout.split("modules")[-1]) >= 14
+    pose = np.load(tmp_path / "p.npz")["pose"]
+    assert pose.shape == (5, 3)
+    assert (tmp_path / "p.npz_vis.png").is_file()
