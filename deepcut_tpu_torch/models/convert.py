@@ -35,3 +35,34 @@ def params_from_numpy(params: Mapping[str, Mapping[str, np.ndarray]]) -> Params:
             conv[k] = torch.tensor(a)  # a copy: the source may be read-only
         out[name] = conv
     return out
+
+
+def params_to_numpy(params: Mapping[str, Mapping[str, torch.Tensor]]) -> Dict[str, Dict[str, np.ndarray]]:
+    """The exact inverse of `params_from_numpy`: the port's torch dict (any
+    device, any memory format) -> contiguous f32 numpy in the JAX package's
+    layouts. Snapshots, ``.caffemodel`` export and checkpoints read by the
+    JAX package go through it."""
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    for name, entry in params.items():
+        conv: Dict[str, np.ndarray] = {}
+        for k, v in entry.items():
+            a = v.detach().to("cpu", torch.float32).numpy()
+            if k == "w" and a.ndim == 4:
+                a = a.transpose(2, 3, 0, 1) if name.startswith(DECONV_PREFIX) else a.transpose(2, 3, 1, 0)
+            conv[k] = np.array(a, order="C")  # a copy: the source trains on
+        out[name] = conv
+    return out
+
+
+def load_caffemodel(path: str) -> Params:
+    """A DeeperCut ``.caffemodel`` -> the port's f32 param dict on the CPU."""
+    from deepcut_tpu.proto.caffemodel import load_deepercut_params
+
+    return params_from_numpy(load_deepercut_params(path))
+
+
+def save_caffemodel(path: str, params: Mapping[str, Mapping[str, torch.Tensor]]) -> None:
+    """The port's param dict -> a ``.caffemodel`` the reference reads."""
+    from deepcut_tpu.proto.caffemodel import save_caffemodel as save
+
+    save(path, params_to_numpy(params))

@@ -13,7 +13,9 @@ package's layouts onto it. `DeeperCut` holds such a dict as an
 
 As in the JAX package's serving path, the folded forward runs the trunk in
 ``cfg.compute_dtype`` (bf16) with weights pre-cast and f32 biases, and the
-heads come out in f32 with the sigmoid in f32. Note the geometry traps:
+heads come out in f32 with the sigmoid in f32. The unfolded forward is the
+training one: f32 (or bf16 convs under ``mixed_train``), BN statistics
+held constant, optional per-stage recompute (``remat``). Note the geometry traps:
 the stride sits on the 1x1 ``branch2a`` / ``branch1`` convs (not the 3x3 as
 in torchvision), and res5's 3x3 convs use dilation 2 with pad 2.
 """
@@ -22,10 +24,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from deepcut_tpu.constants import MEAN_BGR
 from deepcut_tpu_torch.ops.activations import relu, sigmoid
@@ -63,6 +66,15 @@ class DeeperCutConfig:
     naming: str = "numbered"
     bn_eps: float = 1e-5
     compute_dtype: torch.dtype = torch.bfloat16
+    # Recompute residual blocks in the backward pass instead of keeping
+    # their activations: True/False for every/no stage, or a 4-tuple of
+    # bools for res2..res5.
+    remat: Any = False
+    # Mixed-precision training: the unfolded forward runs its convs in
+    # compute_dtype (bf16) while params, BN statistics, losses and updates
+    # stay f32. The reference trains pure f32; leave False for its
+    # trajectories.
+    mixed_train: bool = False
 
     @property
     def stride(self) -> int:
@@ -206,105 +218,179 @@ def fold_bn(params: Params, cfg: DeeperCutConfig = DeeperCutConfig()) -> Params:
 
 
 # --------------------------------------------------------------------------
+# Forward
+# --------------------------------------------------------------------------
+
+
+def _stop_gradient(t: torch.Tensor) -> torch.Tensor:
+    return t.detach() if t.requires_grad else t
+
+
+def _cbr(params: Mapping, x: torch.Tensor, name: str, cfg: DeeperCutConfig, cdt,
+         folded: bool, *, stride=1, pad=0, dilation=1, act=True) -> torch.Tensor:
+    p = params[name]
+    y = conv2d(x, p["w"], p["b"] if "b" in p else None, stride=stride,
+               pad=pad, dilation=dilation, compute_dtype=cdt)
+    if not folded:
+        key = _bn_key(name, params)
+        bn, sc = params[f"bn{key}"], params[f"scale{key}"]
+        # BN statistics are constants under autodiff (the prototxt pins all
+        # three BatchNorm blobs at lr_mult 0); Scale's gamma/beta train.
+        y = bn_scale_affine(y, _stop_gradient(bn["mean"]), _stop_gradient(bn["var"]),
+                            _stop_gradient(bn["scale_factor"]) if "scale_factor" in bn else None,
+                            sc["gamma"], sc["beta"] if "beta" in sc else None,
+                            eps=cfg.bn_eps)
+    return relu(y) if act else y
+
+
+def _compute_dtype(cfg: DeeperCutConfig, folded: bool) -> Optional[torch.dtype]:
+    """The conv dtype: ``cfg.compute_dtype`` when folded (serving) or under
+    ``mixed_train``; None (the input's own f32) for the reference training."""
+    return cfg.compute_dtype if (folded or cfg.mixed_train) else None
+
+
+def _stage_remat(cfg: DeeperCutConfig, stage: int) -> bool:
+    return bool(cfg.remat[stage]) if isinstance(cfg.remat, (tuple, list)) else bool(cfg.remat)
+
+
+def run_trunk(params: Mapping, x: torch.Tensor, cfg: DeeperCutConfig, *,
+              folded: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """conv1 .. res5c over a mean-subtracted (N, 3, H, W) batch (or a uint8
+    one, see `prepare_input`). Returns (res5c, skip tap). Under autodiff a
+    block of a ``cfg.remat`` stage is recomputed in the backward pass
+    (`torch.utils.checkpoint`) instead of keeping its activations."""
+    cdt = _compute_dtype(cfg, folded)
+    x = prepare_input(x).to(cdt or torch.float32)
+    y = _cbr(params, x, "conv1", cfg, cdt, folded, stride=2, pad=3)
+    y = max_pool2d(y, kernel=3, stride=2)
+    skip, skip_name = None, _skip_block(cfg)
+    for stage in range(4):
+        s, d = cfg.stage_strides[stage], cfg.stage_dilations[stage]
+        remat = _stage_remat(cfg, stage) and torch.is_grad_enabled()
+        for bi, block in enumerate(_block_names(cfg, stage)):
+
+            def one_block(y, block=block, bs=s if bi == 0 else 1, first=bi == 0, d=d):
+                if first:
+                    shortcut = _cbr(params, y, f"res{block}_branch1", cfg, cdt, folded,
+                                    stride=bs, act=False)
+                else:
+                    shortcut = y
+                z = _cbr(params, y, f"res{block}_branch2a", cfg, cdt, folded, stride=bs)
+                z = _cbr(params, z, f"res{block}_branch2b", cfg, cdt, folded, pad=d, dilation=d)
+                z = _cbr(params, z, f"res{block}_branch2c", cfg, cdt, folded, act=False)
+                return relu(shortcut + z)
+
+            y = checkpoint(one_block, y, use_reentrant=False) if remat else one_block(y)
+            if block == skip_name:
+                skip = y
+    return y, skip
+
+
+def compute_heads(params: Mapping, res5c: torch.Tensor, skip: Optional[torch.Tensor],
+                  cfg: DeeperCutConfig, *, compute_dtype: Optional[torch.dtype] = None,
+                  heads: Optional[Sequence[str]] = None) -> Dict[str, torch.Tensor]:
+    """The enabled heads as ONE deconv (k3 s2 p0) over res5c plus ONE 1x1
+    skip conv, over concatenated output channels, summed after a top-left
+    crop of the upsampled map; then sliced per head.
+
+    heads: optional subset of ("pose", "locref", "next"); "pose" is
+    mandatory. Returns f32 contiguous NCHW maps: 'fc_pose', 'prob'
+    (sigmoid, in f32) and, when computed, 'loc_pred' and 'next_pred'."""
+    if skip is None:
+        raise ValueError("compute_heads: the config has no stride-8 skip tap")
+    head_list = _head_channels(cfg)
+    if heads is not None:
+        head_list = [(n, ch) for n, ch in head_list if n in heads]
+        if not any(n == "pose" for n, _ in head_list):
+            raise ValueError("compute_heads: the 'pose' head is mandatory")
+    up_p = [params[f"res5c_up_{n}"] for n, _ in head_list]
+    sk_p = [params[f"res3d_{n}"] for n, _ in head_list]
+    wup = torch.cat([p["w"] for p in up_p], dim=1)
+    bup = torch.cat([p["b"] for p in up_p])
+    wsk = torch.cat([p["w"] for p in sk_p], dim=0)
+    bsk = torch.cat([p["b"] for p in sk_p])
+    up = deconv2d(res5c, wup, bup, stride=2, compute_dtype=compute_dtype)
+    sk = conv2d(skip, wsk, bsk, compute_dtype=compute_dtype)
+    fused = crop_like(up, sk.shape, axis=2) + sk
+
+    names = {"pose": "fc_pose", "locref": "loc_pred", "next": "next_pred"}
+    outs: Dict[str, torch.Tensor] = {}
+    off = 0
+    for n, ch in head_list:
+        outs[names[n]] = fused[:, off:off + ch].to(
+            torch.float32, memory_format=torch.contiguous_format)
+        off += ch
+    outs["prob"] = sigmoid(outs["fc_pose"])
+    return outs
+
+
+def forward(params: Mapping, x: torch.Tensor, cfg: DeeperCutConfig = DeeperCutConfig(), *,
+            folded: bool = False, heads: Optional[Sequence[str]] = None) -> Dict[str, torch.Tensor]:
+    """The part detector over a Caffe-named param mapping. x: (N, 3, H, W)
+    mean-subtracted BGR (or uint8). Returns the `compute_heads` dict; the
+    h = ceil(H/8) grid of the reference.
+
+    folded=True takes BN-folded params and computes in ``cfg.compute_dtype``.
+    folded=False takes the raw params with BN/Scale entries: f32, or with
+    ``cfg.mixed_train`` bf16 convs whose outputs round to bf16 before the
+    bf16 bias add (the JAX package's mixed training)."""
+    res5c, skip = run_trunk(params, x, cfg, folded=folded)
+    return compute_heads(params, res5c, skip, cfg, compute_dtype=_compute_dtype(cfg, folded),
+                         heads=heads)
+
+
+# --------------------------------------------------------------------------
 # The module
 # --------------------------------------------------------------------------
 
 
+def is_trainable(name: str) -> bool:
+    """Every entry but the BatchNorm statistics (``bn*`` layers) trains."""
+    return not name.startswith("bn")
+
+
 class DeeperCut(nn.Module):
-    """The part detector over a Caffe-named param dict.
+    """The part detector holding a Caffe-named param dict as ``nn.Parameter``s.
 
     folded=True takes BN-folded params (`fold_bn`, usually `cast_params`'d)
     and computes in ``cfg.compute_dtype``; folded=False takes the raw
-    params with BN/Scale entries and computes in f32. Parameters are frozen
-    (inference only)."""
+    params with BN/Scale entries (see `forward`). Parameters are frozen
+    unless trainable=True (unfolded only): then conv weights and biases and
+    Scale's gamma/beta require grad, and the BN statistics never do."""
 
     def __init__(self, params: Params, cfg: DeeperCutConfig = DeeperCutConfig(),
-                 *, folded: bool = True):
+                 *, folded: bool = True, trainable: bool = False):
         super().__init__()
+        if trainable and folded:
+            raise ValueError("DeeperCut: only the unfolded forward trains")
         self.cfg = cfg
         self.folded = folded
         self.layers = nn.ModuleDict({
-            name: nn.ParameterDict({k: nn.Parameter(torch.as_tensor(v), requires_grad=False)
-                                    for k, v in p.items()})
+            name: nn.ParameterDict({
+                k: nn.Parameter(torch.as_tensor(v), requires_grad=trainable and is_trainable(name))
+                for k, v in p.items()})
             for name, p in params.items()})
-        self._cdt = cfg.compute_dtype if folded else None
+        self._view: Optional[Params] = None
 
-    def _cbr(self, x, name, *, stride=1, pad=0, dilation=1, act=True):
-        p = self.layers[name]
-        y = conv2d(x, p["w"], p["b"] if "b" in p else None, stride=stride,
-                   pad=pad, dilation=dilation, compute_dtype=self._cdt)
-        if not self.folded:
-            key = _bn_key(name, self.layers)
-            bn, sc = self.layers[f"bn{key}"], self.layers[f"scale{key}"]
-            y = bn_scale_affine(y, bn["mean"], bn["var"],
-                                bn["scale_factor"] if "scale_factor" in bn else None,
-                                sc["gamma"], sc["beta"] if "beta" in sc else None,
-                                eps=self.cfg.bn_eps)
-        return relu(y) if act else y
+    def _apply(self, fn, recurse=True):
+        self._view = None
+        return super()._apply(fn, recurse)
+
+    def param_dict(self) -> Params:
+        """The parameters as a plain ``{layer: {key: Parameter}}`` dict (the
+        live tensors, not copies)."""
+        if self._view is None:
+            self._view = {name: dict(p.items()) for name, p in self.layers.items()}
+        return self._view
 
     def run_trunk(self, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """conv1 .. res5c over a mean-subtracted (N, 3, H, W) batch (or a
-        uint8 one, see `prepare_input`). Returns (res5c, skip tap)."""
-        cfg = self.cfg
-        x = prepare_input(x).to(cfg.compute_dtype if self.folded else torch.float32)
-        y = self._cbr(x, "conv1", stride=2, pad=3)
-        y = max_pool2d(y, kernel=3, stride=2)
-        skip, skip_name = None, _skip_block(cfg)
-        for stage in range(4):
-            s, d = cfg.stage_strides[stage], cfg.stage_dilations[stage]
-            for bi, block in enumerate(_block_names(cfg, stage)):
-                bs = s if bi == 0 else 1
-                if bi == 0:
-                    shortcut = self._cbr(y, f"res{block}_branch1", stride=bs, act=False)
-                else:
-                    shortcut = y
-                z = self._cbr(y, f"res{block}_branch2a", stride=bs)
-                z = self._cbr(z, f"res{block}_branch2b", pad=d, dilation=d)
-                z = self._cbr(z, f"res{block}_branch2c", act=False)
-                y = relu(shortcut + z)
-                if block == skip_name:
-                    skip = y
-        return y, skip
+        return run_trunk(self.param_dict(), x, self.cfg, folded=self.folded)
 
     def compute_heads(self, res5c: torch.Tensor, skip: torch.Tensor,
                       heads: Optional[Sequence[str]] = None) -> Dict[str, torch.Tensor]:
-        """The enabled heads as ONE deconv (k3 s2 p0) over res5c plus ONE 1x1
-        skip conv, over concatenated output channels, summed after a top-left
-        crop of the upsampled map; then sliced per head.
-
-        heads: optional subset of ("pose", "locref", "next"); "pose" is
-        mandatory. Returns f32 contiguous NCHW maps: 'fc_pose', 'prob'
-        (sigmoid, in f32) and, when computed, 'loc_pred' and 'next_pred'."""
-        if skip is None:
-            raise ValueError("compute_heads: the config has no stride-8 skip tap")
-        head_list = _head_channels(self.cfg)
-        if heads is not None:
-            head_list = [(n, ch) for n, ch in head_list if n in heads]
-            if not any(n == "pose" for n, _ in head_list):
-                raise ValueError("compute_heads: the 'pose' head is mandatory")
-        up_p = [self.layers[f"res5c_up_{n}"] for n, _ in head_list]
-        sk_p = [self.layers[f"res3d_{n}"] for n, _ in head_list]
-        wup = torch.cat([p["w"] for p in up_p], dim=1)
-        bup = torch.cat([p["b"] for p in up_p])
-        wsk = torch.cat([p["w"] for p in sk_p], dim=0)
-        bsk = torch.cat([p["b"] for p in sk_p])
-        up = deconv2d(res5c, wup, bup, stride=2, compute_dtype=self._cdt)
-        sk = conv2d(skip, wsk, bsk, compute_dtype=self._cdt)
-        fused = crop_like(up, sk.shape, axis=2) + sk
-
-        names = {"pose": "fc_pose", "locref": "loc_pred", "next": "next_pred"}
-        outs: Dict[str, torch.Tensor] = {}
-        off = 0
-        for n, ch in head_list:
-            outs[names[n]] = fused[:, off:off + ch].to(
-                torch.float32, memory_format=torch.contiguous_format)
-            off += ch
-        outs["prob"] = sigmoid(outs["fc_pose"])
-        return outs
+        return compute_heads(self.param_dict(), res5c, skip, self.cfg,
+                             compute_dtype=_compute_dtype(self.cfg, self.folded), heads=heads)
 
     def forward(self, x: torch.Tensor, heads: Optional[Sequence[str]] = None
                 ) -> Dict[str, torch.Tensor]:
-        """x: (N, 3, H, W) mean-subtracted BGR (or uint8). Returns the
-        `compute_heads` dict; h = ceil(H/8) grid as in the reference."""
-        res5c, skip = self.run_trunk(x)
-        return self.compute_heads(res5c, skip, heads=heads)
+        return forward(self.param_dict(), x, self.cfg, folded=self.folded, heads=heads)

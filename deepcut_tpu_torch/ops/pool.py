@@ -7,6 +7,16 @@ maps 344 -> 172, not 171). `F.max_pool2d(ceil_mode=True)` applies the same
 rule except that it also shrinks when ``pad == 0``, which can only matter
 for stride > kernel; the result is checked against `pool_output_size` and a
 geometry the two disagree on raises.
+
+The backward is Caffe's (pooling_layer.cpp): each output's whole gradient
+goes to the FIRST maximum of its window in row-major scan order, and
+overlapping windows add. `F.max_pool2d` keeps that argmax (its forward
+replaces the running max only on a strictly greater value, on the CPU and
+on CUDA, NCHW and channels_last alike), so its autograd backward is the
+reference's. Post-ReLU zeros tie often in the stem pool, so the rule shows
+in the trajectory; tests/test_torch_training.py holds it against the JAX
+package with planted ties, and chip_smoke.py against a plain first-max
+scatter on the card.
 """
 
 from __future__ import annotations

@@ -1,0 +1,153 @@
+"""The train and eval steps on one device, and the batch's way onto it.
+
+Counterpart of `deepcut_tpu.parallel.train_step` without a mesh: one call
+is the reference hot loop (Net::ForwardBackward + SGDSolver::ApplyUpdate,
+solver.cpp:193-275) — device warp, device targets, forward, the fork's
+losses, backward, the Caffe update rule. Passing a mesh raises: data- and
+spatially-parallel training belong to the multi-GPU slice.
+
+A host batch (`deepcut_tpu.data.pipeline.PoseDataSource`, NHWC numpy)
+crosses to the device once, from pinned memory without blocking the host,
+and there the image and any dense target maps become NCHW (a permute: the
+NHWC bytes are the channels_last layout the convolutions take).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Mapping
+
+import numpy as np
+import torch
+
+from deepcut_tpu_torch.models.resnet import DeeperCutConfig, forward, is_trainable
+from deepcut_tpu_torch.models.train import bn_frozen_mults, loss_fn
+from deepcut_tpu_torch.pose.augment_device import warp_batch
+from deepcut_tpu_torch.pose.targets_device import make_batch_rasterizer
+from deepcut_tpu_torch.solver import update_rules
+
+MESH_MESSAGE = ("mesh= (data-parallel and spatial training) belongs to the "
+                "multi-GPU slice of the port, which is not ported yet")
+
+
+def _nhwc_map(key: str, value: torch.Tensor) -> bool:
+    return value.ndim == 4 and (key == "image" or key.endswith(("_targets", "_weights")))
+
+
+def to_device(batch: Mapping[str, Any], device) -> Dict[str, torch.Tensor]:
+    """Host batch (numpy or tensors, NHWC maps) -> tensors on `device`, the
+    image and dense target maps permuted to NCHW. ``image_raw`` and the
+    ``anno_*`` / ``aug_*`` entries keep their layouts."""
+    device = torch.device(device)
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in batch.items():
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
+        if t.device != device:
+            if device.type == "cuda" and t.device.type == "cpu" and t.numel():
+                t = t.pin_memory()
+            t = t.to(device, non_blocking=True)
+        out[k] = t.permute(0, 3, 1, 2) if _nhwc_map(k, t) else t
+    return out
+
+
+def batch_preparer(device, target_cfg=None, target_stats=None
+                   ) -> Callable[[Mapping[str, Any]], Dict[str, torch.Tensor]]:
+    """Host batch -> the loss's device batch: transfer, then the device warp
+    of an ``image_raw`` batch, then (with `target_cfg`) the rasterization
+    of ``anno_*`` annotations into dense NCHW maps."""
+    rast = None if target_cfg is None else make_batch_rasterizer(target_cfg, target_stats)
+
+    def prepare(batch):
+        batch = warp_batch(to_device(batch, device))
+        return rast(batch) if rast is not None else batch
+
+    return prepare
+
+
+class GradStep:
+    """The body of a training iteration, shared by `solver.PoseSolver.step`
+    and `make_train_step`. `backward` runs the forward, the fork's losses
+    and autograd into each trainable leaf's ``.grad`` (calls sum, as an
+    iter_size accumulation needs); `update` hands those gradients to the
+    Caffe update rule, with zeros for the leaves that got none (the frozen
+    BN statistics, a head the config leaves out), and clears them. The zero
+    gradients are made once and re-zeroed after each update, since the rule
+    clips and decays its gradients in place."""
+
+    def __init__(self, model_cfg: DeeperCutConfig, solver_cfg: update_rules.SolverConfig, *,
+                 lr_mults=None, decay_mults=None):
+        self.model_cfg = model_cfg
+        self.solver_cfg = solver_cfg
+        self.lr_mults = lr_mults
+        self.decay_mults = decay_mults
+        self._zeros: Dict[tuple, torch.Tensor] = {}
+
+    def backward(self, params, batch):
+        """-> (total loss, metrics), detached; the gradients land in ``.grad``."""
+        with torch.enable_grad():
+            total, metrics = loss_fn(params, batch, self.model_cfg)
+            total.backward()
+        return total.detach(), {k: v.detach() for k, v in metrics.items()}
+
+    def update(self, params, state):
+        grads = {}
+        for name, entry in params.items():
+            grads[name] = {}
+            for k, v in entry.items():
+                if v.grad is None and (name, k) not in self._zeros:
+                    self._zeros[name, k] = torch.zeros_like(v)
+                grads[name][k] = self._zeros[name, k] if v.grad is None else v.grad
+        params, state = update_rules.step(self.solver_cfg, params, grads, state,
+                                          lr_mults=self.lr_mults, decay_mults=self.decay_mults)
+        for entry in params.values():
+            for v in entry.values():
+                v.grad = None
+        if self._zeros:
+            torch._foreach_zero_(list(self._zeros.values()))
+        return params, state
+
+
+def make_train_step(model_cfg: DeeperCutConfig, solver_cfg: update_rules.SolverConfig,
+                    mesh=None, *, target_cfg=None, target_stats=None):
+    """Returns ``train_step(params, state, batch) -> (params, state,
+    metrics)`` over the port's param dict and `update_rules` state on the
+    params' device. The params and state are updated in place (the JAX step
+    donates their buffers); the trainable leaves are made to require grad.
+    The BatchNorm statistics are frozen (`models.train.bn_frozen_mults`)."""
+    if mesh is not None:
+        raise NotImplementedError(MESH_MESSAGE)
+    if solver_cfg.iter_size > 1:
+        raise ValueError("make_train_step takes one batch per call and does not accumulate; "
+                         "use PoseSolver for iter_size > 1")
+
+    per_device: Dict[torch.device, tuple] = {}
+
+    def train_step(params, state, batch):
+        dev = next(iter(next(iter(params.values())).values())).device
+        if dev not in per_device:
+            mults = bn_frozen_mults(params)
+            per_device[dev] = (batch_preparer(dev, target_cfg, target_stats),
+                               GradStep(model_cfg, solver_cfg, lr_mults=mults, decay_mults=mults))
+        prepare, body = per_device[dev]
+        for name, entry in params.items():
+            if is_trainable(name):
+                for v in entry.values():
+                    v.requires_grad_()
+        _, metrics = body.backward(params, prepare(batch))
+        metrics["lr"] = update_rules.learning_rate(solver_cfg, state["iter"])
+        params, state = body.update(params, state)
+        return params, state, metrics
+
+    return train_step
+
+
+def make_eval_step(model_cfg: DeeperCutConfig, mesh=None, *, folded: bool = True):
+    """``eval_step(params, images) -> outputs``: the forward over an NCHW
+    batch on the params' device, without autograd."""
+    if mesh is not None:
+        raise NotImplementedError(MESH_MESSAGE)
+
+    def eval_step(params, images):
+        with torch.inference_mode():
+            return forward(params, images, model_cfg, folded=folded)
+
+    return eval_step

@@ -377,10 +377,9 @@ def get_estimator(model_def: str = "", model_bin: str = "", device="cuda") -> Po
     key = (model_def, model_bin, str(torch.device(device)))
     if key not in _MODEL_CACHE:
         if model_bin:
-            from deepcut_tpu.proto.caffemodel import load_deepercut_params
-            from deepcut_tpu_torch.models.convert import params_from_numpy
+            from deepcut_tpu_torch.models.convert import load_caffemodel
 
-            params = params_from_numpy(load_deepercut_params(model_bin))
+            params = load_caffemodel(model_bin)
         else:
             from deepcut_tpu_torch.models.resnet import init_params
 

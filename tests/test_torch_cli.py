@@ -1,0 +1,124 @@
+"""The port's `train` verb (`deepcut_tpu_torch.tools.cli`) end to end on the
+CPU: a synthetic window file, copies of examples/pose/pose_train.prototxt
+and pose_solver.prototxt pointing at it, ResNet-50 (the smallest depth the
+verb builds) on small frames. A random 50-layer init diverges within two
+steps (loss 3e5, then 4e12, then NaN), so the first run finetunes from a
+tamed random `.caffemodel` (-weights, the path users take), in f32, with
+snapshots; the second resumes from that `.npz` under -mixed_precision
+-remat -augment_device; a third takes host-rasterized targets at batch 2.
+The parts that are not ported raise NotImplementedError.
+"""
+
+import math
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from deepcut_tpu.data.window_file import ImageRecord, Person, write_window_file
+from deepcut_tpu.proto.caffemodel import save_caffemodel
+from deepcut_tpu_torch.models.convert import params_to_numpy
+from deepcut_tpu_torch.models.resnet import deepercut_config, init_params
+from deepcut_tpu_torch.tools import cli
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def write_dataset(root: Path, n=3, h=120, w=160, seed=0):
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    recs = []
+    for i in range(n):
+        path = root / f"im{i}.png"
+        Image.fromarray(rng.randint(0, 256, (h, w, 3), np.uint8)).save(path)
+        k = rng.randint(8, 15)
+        classes = (rng.permutation(14)[:k] + 1).astype(np.int32)
+        xy = np.stack([rng.uniform(10, w - 10, k), rng.uniform(10, h - 10, k)], 1)
+        recs.append(ImageRecord(str(path), 3, h, w, [Person(classes, xy.astype(np.float32))]))
+    index = root / "train_index.txt"
+    write_window_file(str(index), recs)
+    return index
+
+
+def write_solver(root: Path, index: Path, max_iter: int, name: str = "solver") -> Path:
+    net = (REPO / "examples/pose/pose_train.prototxt").read_text().replace(
+        "examples/pose/train_index.txt", str(index))
+    (root / "train.prototxt").write_text(net)
+    solver = (REPO / "examples/pose/pose_solver.prototxt").read_text()
+    solver = solver.replace('net: "examples/pose/pose_train.prototxt"', f'net: "{root}/train.prototxt"')
+    solver = solver.replace('snapshot_prefix: "examples/pose/snapshots/pose"',
+                            f'snapshot_prefix: "{root}/snap/pose"')
+    for key, val in (("max_iter", max_iter), ("display", 1), ("snapshot", 2), ("base_lr", 1e-5)):
+        solver = "\n".join(f"{key}: {val}" if ln.startswith(f"{key}:") else ln
+                           for ln in solver.splitlines())
+    solver = solver.replace("multistep_lr: 0.005", "multistep_lr: 0.00001") + "\nrandom_seed: 1\n"
+    path = root / f"{name}.prototxt"
+    path.write_text(solver)
+    return path
+
+
+def write_tamed_weights(path: Path) -> Path:
+    """ResNet-50 at random init with the residual branches' last BN scale at
+    0.1 and conv1 x1e-3, so the activations stay O(1) through 16 blocks."""
+    params = init_params(torch.Generator().manual_seed(0), deepercut_config(50, pairwise=False))
+    for name, p in params.items():
+        if name.startswith("scale") and name.endswith("_branch2c"):
+            p["gamma"] = torch.full_like(p["gamma"], 0.1)
+    params["conv1"]["w"] = params["conv1"]["w"] * 1e-3
+    save_caffemodel(str(path), params_to_numpy(params))
+    return path
+
+
+def losses(out: str):
+    return [float(ln.split("loss = ")[1].split()[0]) for ln in out.splitlines()
+            if ln.startswith("Iteration ") and "loss = " in ln]
+
+
+def test_train_verb_f32_then_resume_mixed(tmp_path, capsys):
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    index = write_dataset(tmp_path)
+    base = ["train", "-resnet", "50", "-device", "cpu", "-data_workers", "0"]
+    try:
+        assert cli.main(base + ["-solver", str(write_solver(tmp_path, index, 2)),
+                                "-weights", str(write_tamed_weights(tmp_path / "tamed.caffemodel"))]) == 0
+        out = capsys.readouterr().out
+        assert out.splitlines()[0].startswith("f32 training: TF32 off")
+        assert not torch.backends.cudnn.allow_tf32
+        first = losses(out)
+        assert len(first) == 2 and all(math.isfinite(v) and 0 < v < 100 for v in first), out
+        snap = tmp_path / "snap" / "pose_iter_2"
+        assert snap.with_suffix(".npz").is_file() and snap.with_suffix(".caffemodel").is_file()
+
+        resume = write_solver(tmp_path, index, 3, name="resume")
+        assert cli.main(base + ["-solver", str(resume), "-snapshot", str(snap.with_suffix(".npz")),
+                                "-mixed_precision", "-remat", "-augment_device"]) == 0
+        out = capsys.readouterr().out
+        assert out.splitlines()[0].startswith("mixed precision")
+        assert "Restored from" in out and "at iter 2" in out
+        assert [ln.split(",")[0] for ln in out.splitlines() if "loss = " in ln] == ["Iteration 2"]
+        assert all(math.isfinite(v) and 0 < v < 100 for v in losses(out)), out
+        assert (tmp_path / "snap" / "pose_iter_3.npz").is_file()
+
+        host = write_solver(tmp_path, index, 1, name="host")
+        assert cli.main(base + ["-solver", str(host), "-weights", str(tmp_path / "tamed.caffemodel"),
+                                "-host_targets", "-batch_size", "2"]) == 0
+        out = capsys.readouterr().out
+        assert len(losses(out)) == 1 and all(math.isfinite(v) for v in losses(out)), out
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def test_unported_paths_raise(tmp_path):
+    index = write_dataset(tmp_path, n=1)
+    solver = write_solver(tmp_path, index, 1)
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        cli.main(["train", "-solver", str(solver), "-mesh", "2", "-device", "cpu"])
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        cli.main(["train", "-solver", str(solver), "-spatial", "2", "-device", "cpu"])
+    (tmp_path / "lenet.prototxt").write_text(
+        'name: "n" layer { name: "ip" type: "InnerProduct" bottom: "data" top: "ip" }\n')
+    (tmp_path / "graph_solver.prototxt").write_text(f'net: "{tmp_path}/lenet.prototxt"\nbase_lr: 0.1\n')
+    with pytest.raises(NotImplementedError, match="engine slice"):
+        cli.main(["train", "-solver", str(tmp_path / "graph_solver.prototxt"), "-device", "cpu"])

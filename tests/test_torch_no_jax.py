@@ -1,8 +1,9 @@
 """The port never imports jax: the machine with the card has none installed.
 
 A subprocess blocks `jax` (``sys.modules['jax'] = None`` makes every import
-of it raise), imports every module of `deepcut_tpu_torch`, and runs one tiny
-CPU `estimate_pose`, its demo CLI included.
+of it raise), imports every module of `deepcut_tpu_torch`, runs one tiny
+CPU `estimate_pose`, its demo CLI included, and trains one CPU step through
+the port's `train` verb.
 """
 
 import os
@@ -40,17 +41,28 @@ estimate._MODEL_CACHE[("", "", "cpu")] = est
 from PIL import Image
 Image.fromarray(img[:, :, ::-1]).save(sys.argv[1])
 assert demo.main([sys.argv[1], "--device", "cpu", "--out_name", sys.argv[2]]) == 0
+
+from deepcut_tpu_torch.tools import cli
+assert cli.main(["train", "-solver", sys.argv[3], "-weights", sys.argv[4], "-resnet", "50",
+                 "-device", "cpu", "-data_workers", "0"]) == 0
+assert "jax" not in {m.split(".")[0] for m, mod in sys.modules.items() if mod is not None}
 print("modules", len(names))
 """
 
 
 def test_port_imports_and_runs_without_jax(tmp_path):
+    from test_torch_cli import write_dataset, write_solver, write_tamed_weights
+
+    solver = write_solver(tmp_path, write_dataset(tmp_path, n=2), 1)
+    weights = write_tamed_weights(tmp_path / "tamed.caffemodel")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run(
-        [sys.executable, "-c", SCRIPT, str(tmp_path / "f.png"), str(tmp_path / "p.npz")],
+        [sys.executable, "-c", SCRIPT, str(tmp_path / "f.png"), str(tmp_path / "p.npz"),
+         str(solver), str(weights)],
         env=env, capture_output=True, text=True, timeout=300, cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stdout + proc.stderr[-4000:]
-    assert int(proc.stdout.split("modules")[-1]) >= 14
+    assert int(proc.stdout.split("modules")[-1]) >= 24
+    assert "Iteration 0, loss = " in proc.stdout and (tmp_path / "snap" / "pose_iter_1.npz").is_file()
     pose = np.load(tmp_path / "p.npz")["pose"]
     assert pose.shape == (5, 3)
     assert (tmp_path / "p.npz_vis.png").is_file()
