@@ -1,14 +1,21 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (`deepcut_tpu_torch`) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase below
+    python3 chip_smoke.py --serving-times  # phase 1 and the serving times only
 
 Drives the port's two paths at the full ResNet-152 width through their
 entry points, in phases; any failure raises and the exit code is non-zero:
 
 1. the card: nvidia-smi's name and power limit, torch / CUDA versions;
-2. build the CUDA decode kernel from csrc/ with nvcc;
-3. the kernel against its plain PyTorch version on the card, bit for bit;
+2. build the CUDA kernels from csrc/ with nvcc, one process per source, all
+   started together: the decode (csrc/decode_pose.cu) and the serving
+   conv's epilogue (csrc/conv_epilogue.cu);
+3. each kernel against its plain PyTorch version on the card: the decode's
+   fused entry and its probability-map entry (argmax and pose bit for bit,
+   on ties, all-equal, bf16-valued and NaN maps), the epilogue bit for bit
+   (random, residual, strided residual); and cuDNN's TF32 convolution exact
+   on bf16-valued operands (allowed against not allowed, 1e-5 relative);
 4. the serving slice (random weights from a seeded generator, tamed):
    estimate_pose, estimate_pose_batch, bf16 against f32 scoremaps, an HD
    frame on the tiled path;
@@ -28,11 +35,18 @@ T3. the tiny model learns the coloured-disc task of
    the CLI's source), scored through the port's PoseEstimator (the decode
    kernel) by the eval hook; an estimator built from T1's .caffemodel
    snapshot gives a finite pose;
-6. times on the card (CUDA events), each beside the card's name and limit:
-   serving, the decode kernel, and the full-width PoseSolver.step.
+6. times on the card, each beside the card's name and limit: the serving
+   forward and estimate_pose_batch at batch 1 and 4 (CUDA-event wall time,
+   torch.profiler device busy time, idle share, kernels per call), each
+   kernel at the main path's shapes beside its plain version, its bound
+   and a library call where one computes the same function, and the
+   full-width PoseSolver.step.
 
-The kernel's launch counter is zeroed before phase 4 and read after phase 5
-(the serving path), and again before T1 and after T3 (the training path).
+The kernels' launch counters are zeroed before phase 4 and read after
+phase 5 (the serving path), and again before T1 and after T3 (the training
+path). --serving-times imports only what the package had before the conv
+epilogue kernel, so the same timing runs over an older checkout of the
+package (run from that checkout) for a comparison inside one call.
 It never imports jax (the card's machine has none). The line before the last
 is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -67,6 +81,33 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 J = 14
 KERNEL_SHAPES = [(1, J, 87, 87), (4, J, 86, 86), (3, J, 250, 188)]
+# The fused decode's (n, h, w, channels beyond 3J): the serving path's 88 x 88
+# grid (704 canvas) at batch 1 and 4 (8-byte copies), a large grid with an
+# odd channel count (4-byte copies), and rows so wide that its shared memory
+# holds one at a time (3600 * 14 logits; a band then takes several stages).
+FUSED_SHAPES = [(1, 88, 88, 0), (4, 88, 88, 0), (3, 125, 94, 7), (1, 40, 3600, 0)]
+# The epilogue at the serving forward's shapes (704 canvas): (shape,
+# residual, relu, residual crop). C = 64 and 256 at res2, 512 at res3, 2048
+# at res5, and the heads' 42 channels (deconv out; skip conv + cropped deconv).
+EPILOGUE_CASES = [((1, 64, 176, 176), False, True, (0, 0)),
+                  ((1, 256, 176, 176), True, True, (0, 0)),
+                  ((4, 512, 88, 88), True, True, (0, 0)),
+                  ((4, 2048, 44, 44), True, True, (0, 0)),
+                  ((1, 2048, 44, 44), False, False, (0, 0)),
+                  ((4, 42, 89, 89), False, False, (0, 0)),
+                  ((4, 42, 88, 88), True, False, (1, 1)),
+                  ((3, 64, 17, 23), True, True, (3, 2))]
+# TF32 allowed against not allowed on bf16-valued operands: (name, x, w,
+# pad, dilation, transposed) at res4, res5 (dilated) and the heads' deconv.
+TF32_CASES = [("res4 1x1", (1, 1024, 44, 44), (256, 1024, 1, 1), 0, 1, False),
+              ("res4 3x3", (1, 256, 44, 44), (256, 256, 3, 3), 1, 1, False),
+              ("res5 3x3 dilated", (1, 512, 44, 44), (512, 512, 3, 3), 2, 2, False),
+              ("heads deconv", (1, 2048, 44, 44), (2048, 42, 3, 3), 0, 1, True)]
+# Exact products, f32 sums in another order. Read on the card (NVIDIA H100
+# 80GB HBM3, 700 W): 2.6e-6 to 1.1e-5 of max |ref|, the most at res5's
+# 4608-term sums. A TF32 rounding of any value that is not bf16 (a Winograd
+# or FFT transform) errs by ~2**-11 = 4.9e-4 of that value, 10x above this.
+TF32_RTOL = 5e-5
 # Pose agreement between two bf16 runs of the same frame that differ only in
 # batch composition or path (batch of 4 against one, HTTP against direct).
 # cuDNN may pick other algorithms per batch size, so the bf16 maps can differ
@@ -82,6 +123,12 @@ BATCH_MIN_AGREE = 0.5
 # bf16 forward against the f32 forward of the same weights (TF32 off): each
 # bf16 rounding keeps 8 bits, over 155 layers; held: prob within 0.1.
 BF16_PROB_TOL = 0.1
+# The same gap, and the serving forward's device kernels per call at batch 1
+# and 4, as the card read them while cuDNN added a bf16 bias after rounding
+# each conv (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md).
+BIAS_TWICE_BF16_GAP = 0.02369
+BIAS_TWICE_KERNELS_PER_CALL = {1: 688, 4: 734}
+HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's device memory rate (NVIDIA's data sheet)
 # The full-width training loss with bf16 convolutions against f32 (TF32
 # off), same params and batch: the loss averages ~10^4 cross-entropy terms
 # over the bf16 logits, whose errors largely cancel in the mean. Read on the
@@ -121,13 +168,30 @@ def phase_device() -> str:
 
 # -- 2. build ----------------------------------------------------------------
 def phase_build() -> None:
+    from deepcut_tpu_torch import native
+    from deepcut_tpu_torch.ops import conv_epilogue
+
     t0 = time.perf_counter()
-    lib = cuda_decode.build()
-    log(f"build: {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
-    log(lib.with_suffix(".log").read_text().strip())
+    libs = native.build(cuda_decode.LIB, conv_epilogue.LIB)
+    log(f"build: {', '.join(str(lib.relative_to(ROOT)) for lib in libs)} in "
+        f"{time.perf_counter() - t0:.2f} s (nvcc, one process per source, in parallel)")
+    for lib in libs:
+        log(lib.with_suffix(".log").read_text().strip())
 
 
-# -- 3. kernel against plain -------------------------------------------------
+# -- 3. kernels against plain -----------------------------------------------
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit, NaN where NaN."""
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in f32 units in the last place between finite a and b."""
+    fin = a.isfinite() & b.isfinite()
+    d = (a[fin].view(torch.int32).long() - b[fin].view(torch.int32).long()).abs()
+    return int(d.max()) if d.numel() else 0
+
+
 def _kernel_cases(rng):
     for shape in KERNEL_SHAPES:
         n, _, h, w = shape
@@ -144,7 +208,8 @@ def _kernel_cases(rng):
         yield f"{shape} bf16-upcast masked", bf16, loc, masked
 
 
-def phase_kernel_vs_plain() -> float:
+def check_decode_prob() -> float:
+    """The probability-map entry against its plain version."""
     rng = np.random.RandomState(SEED)
     max_err = 0.0
     for name, prob, loc, (vh, vw) in _kernel_cases(rng):
@@ -153,25 +218,150 @@ def phase_kernel_vs_plain() -> float:
             got = cuda_decode.decode_pose(prob, loc, vh, vw, scale)
             ref = decode_pose_batch(prob, loc, scale=scale, valid_hw=(vh, vw))
             torch.cuda.synchronize()
-            if not torch.equal(got[:, 2], ref[:, 2]):
-                raise AssertionError(f"kernel conf differs from plain on {name}")
-            torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"decode (prob entry) differs from plain on {name}")
             max_err = max(max_err, float((got - ref).abs().max()))
         # argmax indices: with zero offsets at scale 1, x and y are cell*8+4
-        zero = torch.zeros_like(loc)
-        cells = cuda_decode.decode_pose(prob, zero, vh, vw, 1.0)
+        cells = cuda_decode.decode_pose(prob, torch.zeros_like(loc), vh, vw, 1.0)
         idx = ((cells[:, 1] - 4) / 8).long() * prob.shape[3] + ((cells[:, 0] - 4) / 8).long()
         rows = torch.arange(prob.shape[2], device="cuda").reshape(1, 1, -1, 1)
         cols = torch.arange(prob.shape[3], device="cuda").reshape(1, 1, 1, -1)
         keep = (rows < vh.reshape(-1, 1, 1, 1)) & (cols < vw.reshape(-1, 1, 1, 1))
         masked = torch.where(keep, prob, torch.tensor(float("-inf"), device="cuda"))
-        want = torch.argmax(masked.flatten(2), dim=2)
-        if not torch.equal(idx, want):
-            raise AssertionError(f"kernel argmax differs from plain on {name}")
-        log(f"kernel == plain: {name}")
-    log(f"kernel vs plain: argmax and conf bit-equal on all cases, "
-        f"pose max |err| {max_err:.3g} (held to 1e-6 relative)")
+        if not torch.equal(idx, torch.argmax(masked.flatten(2), dim=2)):
+            raise AssertionError(f"decode (prob entry) argmax differs from plain on {name}")
+    log(f"decode prob entry == plain: argmax and pose bit-equal on {len(KERNEL_SHAPES) * 4} "
+        f"cases x 2 scales (max |err| {max_err:.3g})")
     return max_err
+
+
+def _fused_map(logits: np.ndarray, loc: np.ndarray, extra: int, rng) -> torch.Tensor:
+    """(N, h, w, J) logits + (N, h, w, 2J) loc [+ extra channels] -> the
+    heads' (N, C, h, w) f32 channels_last map on the card."""
+    parts = [logits, loc] + ([rng.randn(*logits.shape[:3], extra).astype(np.float32)] if extra else [])
+    nhwc = torch.from_numpy(np.ascontiguousarray(np.concatenate(parts, -1))).cuda()
+    return nhwc.permute(0, 3, 1, 2)
+
+
+def check_decode_fused() -> float:
+    """The fused entry (the serving path's) against `decode_fused_plain` on
+    the card: argmax, x, y and offsets bit for bit; the confidence is the
+    kernel's sigmoid against torch.sigmoid's, held within 1 ulp and
+    reported when not bit-equal."""
+    rng = np.random.RandomState(SEED + 1)
+    max_err, conf_ulps, cases = 0.0, 0, 0
+    limits = cuda_decode.fused_limits()
+    for n, h, w, extra in FUSED_SHAPES:
+        loc = rng.randn(n, h, w, 2 * J).astype(np.float32)
+        raw = (rng.randn(n, h, w, J) * 3).astype(np.float32)
+        nan = raw.copy()
+        nan[0, h // 2, w // 3, :3] = np.nan
+        nan[-1, 0, 0, 5] = np.nan
+        variants = {
+            "random": raw,
+            "ties": np.round(raw),                                   # many equal maxima
+            "all-equal": np.full_like(raw, 0.25),
+            "bf16": torch.from_numpy(raw).to(torch.bfloat16).float().numpy(),
+            "nan": nan,
+        }
+        for name, logits in variants.items():
+            fused = _fused_map(logits.astype(np.float32), loc, extra, rng)
+            for masked in (False, True):
+                vh = rng.randint(1, h + 1, n).tolist() if masked else [h] * n
+                vw = rng.randint(1, w + 1, n).tolist() if masked else [w] * n
+                for scale in (1.0, 0.75):
+                    got = cuda_decode.decode_fused(fused, J, vh, vw, scale)
+                    ref = cuda_decode.decode_fused_plain(fused, J, vh, vw, scale)
+                    torch.cuda.synchronize()
+                    what = f"{(n, fused.shape[1], h, w)} {name}{' masked' if masked else ''}"
+                    if not _same(got[:, [0, 1, 3, 4]], ref[:, [0, 1, 3, 4]]):
+                        raise AssertionError(f"decode (fused entry) pose differs from plain on {what}")
+                    if not torch.equal(got[:, 2].isnan(), ref[:, 2].isnan()):
+                        raise AssertionError(f"decode (fused entry) NaN conf differs on {what}")
+                    conf_ulps = max(conf_ulps, _ulps(got[:, 2], ref[:, 2]))
+                    if conf_ulps > 1:
+                        raise AssertionError(f"decode (fused entry) conf {conf_ulps} ulp off on {what}")
+                    d = (got - ref).abs()
+                    max_err = max(max_err, float(d[d.isfinite()].max()))
+                    cases += 1
+    log(f"decode fused entry == plain ({limits['cluster']}-block clusters): argmax, x, y and "
+        f"offsets bit-equal on {cases} cases (random, ties, all-equal, bf16-valued, NaN; "
+        f"masked and not; 2 scales); conf "
+        + ("bit-equal to torch.sigmoid's" if conf_ulps == 0 else f"within {conf_ulps} ulp of "
+           "torch.sigmoid's (not bit-equal)") + f"; max |err| {max_err:.3g}")
+    return max_err
+
+
+def _epilogue_case(rng, shape, residual, crop=(0, 0)):
+    n, c, h, w = shape
+    y = torch.from_numpy((rng.randn(n, h, w, c) * 4).astype(np.float32))
+    y.view(-1)[:4] = torch.tensor([1 + 2.0 ** -8, 1 + 3 * 2.0 ** -8, -(1 + 2.0 ** -8), -0.0])
+    y = y.cuda().permute(0, 3, 1, 2)
+    bias = torch.from_numpy(rng.randn(c).astype(np.float32)).cuda()
+    res = None
+    if residual:
+        big = torch.from_numpy(rng.randn(n, h + crop[0], w + crop[1], c).astype(np.float32) * 3)
+        big = big.to(torch.bfloat16).float().cuda().permute(0, 3, 1, 2)
+        res = big[:, :, :h, :w]
+    return y, bias, res
+
+
+def check_conv_epilogue() -> float:
+    """The epilogue against `conv_epilogue_plain` on the card, bit for bit,
+    at the serving forward's shapes (704 canvas)."""
+    from deepcut_tpu_torch.ops import conv_epilogue
+
+    rng = np.random.RandomState(SEED + 2)
+    cases = 0
+    for shape, residual, relu, crop in EPILOGUE_CASES:
+        y, bias, res = _epilogue_case(rng, shape, residual, crop)
+        got = conv_epilogue.conv_epilogue(y.clone(), bias, res, relu)
+        ref = conv_epilogue.conv_epilogue_plain(y, bias, res, relu)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"conv_epilogue differs from plain on {shape} residual={residual} "
+                                 f"crop={crop} relu={relu}")
+        cases += 1
+    log(f"conv_epilogue == plain: bit-equal on {cases} cases (vec4 and scalar, residual dense "
+        f"and strided, ReLU and not)")
+    return 0.0
+
+
+def check_tf32_exact() -> None:
+    """cuDNN with TF32 allowed (the serving `exact_conv`) against TF32 not
+    allowed, on bf16-valued operands: every product is exact in TF32, so the
+    two differ only by the order of f32 sums. A lossy algorithm pick
+    (Winograd, FFT) would show here."""
+    from deepcut_tpu_torch.ops.conv import exact_conv
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cl = torch.channels_last
+    worst = 0.0
+    for name, xs, ws, pad, dil, transposed in TF32_CASES:
+        x = torch.randn(xs, generator=gen, device="cuda").to(torch.bfloat16).float().contiguous(memory_format=cl)
+        w = (torch.randn(ws, generator=gen, device="cuda") * (2.0 / (ws[1] * ws[2] * ws[3])) ** 0.5
+             ).to(torch.bfloat16).float().contiguous(memory_format=cl)
+        stride = 2 if transposed else 1
+        got = exact_conv(x, w, stride=stride, pad=pad, dilation=dil, transposed=transposed)
+        if transposed:
+            ref = torch.ops.aten.cudnn_convolution_transpose(
+                x, w, (pad, pad), (0, 0), (stride, stride), (dil, dil), 1, False, False, False)
+        else:
+            ref = torch.ops.aten.cudnn_convolution(
+                x, w, (pad, pad), (stride, stride), (dil, dil), 1, False, False, False)
+        rel = float((got - ref).abs().max() / ref.abs().max())
+        worst = max(worst, rel)
+        log(f"TF32 conv on bf16 values, {name} {tuple(xs)} * {tuple(ws)}: max |diff| / max |ref| "
+            f"{rel:.3g} against TF32 off")
+        if rel > TF32_RTOL:
+            raise AssertionError(f"TF32 conv not exact on bf16 values at {name}: {rel}")
+
+
+def phase_kernels_vs_plain() -> dict:
+    errs = {"decode_pose_prob": check_decode_prob(), "decode_pose": check_decode_fused(),
+            "conv_epilogue": check_conv_epilogue()}
+    check_tf32_exact()
+    return errs
 
 
 # -- 4. the full-width slice -------------------------------------------------
@@ -214,6 +404,8 @@ def agreement(a, b, what):
 
 
 def phase_slice(rng):
+    from deepcut_tpu_torch.ops import conv_epilogue
+
     cfg = deepercut_config(152)
     params = tame_params(cfg)
     est = PoseEstimator(params, cfg, device="cuda")          # BN-folded, bf16, channels_last
@@ -228,10 +420,11 @@ def phase_slice(rng):
     pose = est.estimate_pose(f480)
     if pose is None or pose.shape != (5, J) or not np.isfinite(pose).all():
         raise AssertionError(f"estimate_pose: bad pose {pose}")
-    if cuda_decode.launches == 0:
-        raise AssertionError("estimate_pose did not launch the decode kernel")
+    if cuda_decode.launches == 0 or conv_epilogue.launches == 0:
+        raise AssertionError("estimate_pose did not launch the decode and epilogue kernels")
     log(f"estimate_pose 480x640: finite (5, 14), conf min {pose[2].min():.4f} "
-        f"max {pose[2].max():.4f}, kernel launches so far {cuda_decode.launches}")
+        f"max {pose[2].max():.4f}, launches so far: decode {cuda_decode.launches}, "
+        f"conv_epilogue {conv_epilogue.launches}")
 
     batch = est.estimate_pose_batch([f480] * 4)
     for i in range(4):
@@ -241,8 +434,8 @@ def phase_slice(rng):
     sm32, _ = est32.scoremaps(f480)
     d = float(np.abs(sm16 - sm32).max())
     same = (sm16.reshape(-1, J).argmax(0) == sm32.reshape(-1, J).argmax(0)).mean()
-    log(f"bf16 vs f32 scoremaps (TF32 off): max |dprob| {d:.4g}, "
-        f"argmax agrees on {same:.3f} of joints")
+    log(f"bf16 vs f32 scoremaps (TF32 off): max |dprob| {d:.4g} (with the bias rounded twice: "
+        f"{BIAS_TWICE_BF16_GAP}), argmax agrees on {same:.3f} of joints")
     if not np.isfinite(sm16).all() or d > BF16_PROB_TOL:
         raise AssertionError(f"bf16 scoremaps off the f32 ones by {d}")
     del est32
@@ -642,33 +835,9 @@ def _events_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_times(est, rng, card: str):
-    for bs in (1, 4):
-        frames = [frame(rng, 688, 688) for _ in range(bs)]
-        ms = _events_ms(lambda: est.estimate_pose_batch(frames), iters=20)
-        log(f"time [{card}]: estimate_pose_batch 688x688 frames (canvas bucket 704), "
-            f"bf16, pose+locref, batch {bs}: {ms:.3f} ms/call, {bs * 1000 / ms:.2f} img/s")
-        x = torch.zeros((bs, 3, 688, 688), device="cuda", dtype=torch.bfloat16).to(
-            memory_format=torch.channels_last)
-        with torch.inference_mode():
-            ms = _events_ms(lambda: est.model(x, heads=("pose", "locref")), iters=20)
-        log(f"time [{card}]: forward only, 688x688 canvas, bf16, pose+locref, "
-            f"batch {bs}: {ms:.3f} ms, {bs * 1000 / ms:.2f} img/s")
-    n, _, h, w = KERNEL_SHAPES[1]
-    prob = torch.rand((n, J, h, w), device="cuda")
-    loc = torch.randn((n, 2 * J, h, w), device="cuda")
-    vh = torch.full((n,), h, dtype=torch.int32, device="cuda")
-    vw = torch.full((n,), w, dtype=torch.int32, device="cuda")
-    ms = _events_ms(lambda: cuda_decode.decode_pose(prob, loc, vh, vw, 1.0), iters=200)
-    plain_ms = _events_ms(lambda: decode_pose_batch(prob, loc, valid_hw=(vh, vw)), iters=200)
-    log(f"time [{card}]: decode {(n, J, h, w)}: kernel {ms * 1000:.2f} us, "
-        f"plain PyTorch {plain_ms * 1000:.2f} us")
-    return ms, plain_ms
-
-
-def _device_profile(fn, steps: int):
-    """(device ms, device ops) per call of `fn`, from torch.profiler's
-    per-kernel self device time."""
+def _device_profile(fn, steps: int, top: int = 0):
+    """(device ms, device ops, the `top` kernels by device ms) per call of
+    `fn`, from torch.profiler's per-kernel self device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -678,7 +847,104 @@ def _device_profile(fn, steps: int):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1000.0
-    return busy / steps, sum(e.count for e in events) / steps
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
+    return (busy / steps, sum(e.count for e in events) / steps,
+            [(e.key, e.self_device_time_total / 1000.0 / steps, e.count / steps) for e in ranked])
+
+
+def serving_times(est, rng, card: str) -> None:
+    """The serving forward and estimate_pose_batch on 688x688 frames at
+    batch 1 and 4: CUDA-event wall time, device busy time and kernels per
+    call from torch.profiler, the idle share, and where the device time
+    goes. Uses only what the package had before the epilogue kernel (see
+    --serving-times)."""
+    for bs in (1, 4):
+        frames = [frame(rng, 688, 688) for _ in range(bs)]
+        x = torch.zeros((bs, 3, 688, 688), device="cuda").to(memory_format=torch.channels_last)
+
+        def forward():
+            with torch.inference_mode():
+                est.model(x, heads=("pose", "locref"))
+
+        for what, fn in (("forward only, 688x688 canvas", forward),
+                         ("estimate_pose_batch 688x688 frames (canvas bucket 704)",
+                          lambda: est.estimate_pose_batch(frames))):
+            ms = _events_ms(fn, iters=20)
+            busy, ops, ranked = _device_profile(fn, steps=10, top=6)
+            log(f"time [{card}]: {what}, bf16, pose+locref, batch {bs}: {ms:.3f} ms/call, "
+                f"{bs * 1000 / ms:.2f} img/s; device busy {busy:.3f} ms (idle share "
+                f"{1 - busy / ms:.3f}), {ops:.0f} device kernels per call (with the bias rounded twice, the "
+                f"forward: {BIAS_TWICE_KERNELS_PER_CALL[bs]})")
+            log(f"profile [{card}]: {what}, batch {bs}, top kernels (ms per call, launches): "
+                + "; ".join(f"{name[:70]} {t:.3f} ms x{n:.0f}" for name, t, n in ranked))
+
+
+def _bound_ms(nbytes: float) -> float:
+    """The least time to move `nbytes` at the H100's 3.35 TB/s."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def kernel_times(card: str) -> dict:
+    """Each kernel at the main path's shapes (704 canvas, batch 4) beside its
+    plain version, its bound and, where one exists, a single PyTorch call
+    computing the same function; the decode's probability-map entry in the
+    same call."""
+    from deepcut_tpu_torch.ops import conv_epilogue
+
+    rng = np.random.RandomState(SEED + 3)
+    n, h, w = 4, 88, 88
+    logits = torch.from_numpy((rng.randn(n, h, w, J) * 3).astype(np.float32)).to(torch.bfloat16).float()
+    loc = torch.from_numpy(rng.randn(n, h, w, 2 * J).astype(np.float32))
+    fused = torch.cat([logits, loc], -1).cuda().permute(0, 3, 1, 2)
+    vh = vw = [h] * n
+    prob = torch.sigmoid(fused[:, :J]).contiguous()
+    locc = fused[:, J:].contiguous()
+    vht = torch.full((n,), h, dtype=torch.int32, device="cuda")
+    rows = torch.arange(h, device="cuda").reshape(1, 1, -1, 1)
+    masked = torch.where(rows < vht.reshape(-1, 1, 1, 1), prob, float("-inf"))
+    out = {}
+    it = 500
+    t = {"fused": _events_ms(lambda: cuda_decode.decode_fused(fused, J, vh, vw), it),
+         "fused_plain": _events_ms(lambda: cuda_decode.decode_fused_plain(fused, J, vh, vw), it),
+         "prob": _events_ms(lambda: cuda_decode.decode_pose(prob, locc, vht, vht), it),
+         "prob_plain": _events_ms(lambda: decode_pose_batch(prob, locc, valid_hw=(vht, vht)), it),
+         "library": _events_ms(lambda: torch.max(masked.flatten(2), 2), it)}
+    busy = {k: _device_profile(fn, steps=50, top=1)[2][0] for k, fn in (
+        ("fused", lambda: cuda_decode.decode_fused(fused, J, vh, vw)),
+        ("prob", lambda: cuda_decode.decode_pose(prob, locc, vht, vht)))}
+    cells = n * J * h * w
+    out["decode_pose"] = dict(ms=t["fused"], plain_ms=t["fused_plain"], library_ms=t["library"],
+                              bound_ms=_bound_ms(cells * 4 + n * J * 2 * 4 + n * 5 * J * 4))
+    out["decode_pose_prob"] = dict(ms=t["prob"], plain_ms=t["prob_plain"], library_ms=t["library"],
+                                   bound_ms=_bound_ms(cells * 4 + n * J * 2 * 4 + 2 * n * 4
+                                                      + n * 5 * J * 4))
+    for key, name in (("fused", "decode fused entry (redesigned)"), ("prob", "decode prob entry")):
+        kname, dev_ms, _ = busy[key]
+        log(f"time [{card}]: {name} at {(n, 3 * J if key == 'fused' else J, h, w)}: "
+            f"{t[key] * 1000:.2f} us per call (CUDA events over {it} calls), device time "
+            f"{dev_ms * 1000:.2f} us ({kname[:40]}), plain PyTorch {t[key + '_plain'] * 1000:.2f} us, "
+            f"torch.max over masked prob {t['library'] * 1000:.2f} us, bound "
+            f"{out['decode_pose' if key == 'fused' else 'decode_pose_prob']['bound_ms'] * 1000:.3f} us")
+
+    shape = (4, 512, 88, 88)                  # a res3 block end: residual and ReLU
+    y, bias, res = _epilogue_case(rng, shape, True)
+    ms = _events_ms(lambda: conv_epilogue.conv_epilogue(y, bias, res, True), 200)
+    plain_ms = _events_ms(lambda: conv_epilogue.conv_epilogue_plain(y, bias, res, True), 50)
+    _, _, [(kname, dev_ms, _)] = _device_profile(
+        lambda: conv_epilogue.conv_epilogue(y, bias, res, True), steps=50, top=1)
+    numel = y.numel()
+    out["conv_epilogue"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                bound_ms=_bound_ms(numel * 4 * 3 + shape[1] * 4))
+    log(f"time [{card}]: conv_epilogue at {shape} with residual and ReLU: {ms * 1000:.2f} us per "
+        f"call, device time {dev_ms * 1000:.2f} us ({kname[:40]}), plain PyTorch "
+        f"{plain_ms * 1000:.2f} us, bound {out['conv_epilogue']['bound_ms'] * 1000:.2f} us "
+        f"(reads y and the residual, writes y)")
+    return out
+
+
+def phase_times(est, rng, card: str) -> dict:
+    serving_times(est, rng, card)
+    return kernel_times(card)
 
 
 def phase_train_times(card: str):
@@ -715,7 +981,7 @@ def phase_train_times(card: str):
                 f"(canvas {batches[bs]['image'].shape[1]}), "
                 f"{'mixed bf16' if mixed else 'f32 (TF32 off)'}, batch {bs}: {ms:.3f} ms, "
                 f"{bs * 1000 / ms:.2f} img/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-            busy, ops = _device_profile(lambda: solver.step(1), steps=2)
+            busy, ops, _ = _device_profile(lambda: solver.step(1), steps=2)
             log(f"profile [{card}]: that step issues {ops:.0f} device ops; device busy "
                 + (f"{busy:.3f} ms of {ms:.3f} ms (idle share {1 - busy / ms:.2f})" if busy
                    else "not measured (the profiler saw no device time)"))
@@ -723,32 +989,60 @@ def phase_train_times(card: str):
         torch.cuda.empty_cache()
 
 
+KERNELS = {  # name -> (source, what it replaces)
+    "conv_epilogue": ("deepcut_tpu_torch/csrc/conv_epilogue.cu",
+                      "deepcut_tpu/ops/conv.py:93 (no TPU kernel: XLA fuses this epilogue)"),
+    "decode_pose": ("deepcut_tpu_torch/csrc/decode_pose.cu", "deepcut_tpu/ops/pallas_decode.py:63"),
+    "decode_pose_prob": ("deepcut_tpu_torch/csrc/decode_pose.cu",
+                         "deepcut_tpu/ops/pallas_decode.py:63"),
+}
+
+
+def _counts() -> dict:
+    from deepcut_tpu_torch.ops import conv_epilogue
+
+    return {"conv_epilogue": conv_epilogue.launches, "decode_pose": cuda_decode.launches,
+            "decode_pose_prob": cuda_decode.prob_launches}
+
+
+def _zero_counts() -> None:
+    from deepcut_tpu_torch.ops import conv_epilogue
+
+    conv_epilogue.launches = cuda_decode.launches = cuda_decode.prob_launches = 0
+
+
 def main() -> int:
     card = phase_device()
+    if sys.argv[1:] == ["--serving-times"]:
+        serving_times(PoseEstimator(tame_params(deepercut_config(152)), device="cuda"),
+                      np.random.RandomState(SEED), card)
+        return 0
     phase_build()
-    max_err = phase_kernel_vs_plain()
+    errs = phase_kernels_vs_plain()
     rng = np.random.RandomState(SEED)
-    cuda_decode.launches = 0                     # the serving path starts here
+    _zero_counts()                               # the serving path starts here
     est = phase_slice(rng)
     phase_server(est, rng)
-    serving = cuda_decode.launches               # and ends here
-    if serving == 0:
-        raise AssertionError("the serving path never launched the decode kernel")
-    cuda_decode.launches = 0                     # the training path starts here
+    serving = _counts()                          # and ends here
+    _zero_counts()                               # the training path starts here
     phase_train(rng)
-    training = cuda_decode.launches              # and ends here
-    if training == 0:
-        raise AssertionError("the training path never launched the decode kernel")
-    launches = serving + training
-    log(f"decode kernel launches: serving path {serving}, training path {training}")
-    ms, plain_ms = phase_times(est, rng, card)
+    training = _counts()                         # and ends here
+    log(f"kernel launches: serving path {serving}, training path {training}")
+    for path, counts, need in (("serving", serving, KERNELS),
+                               ("training", training, ("conv_epilogue", "decode_pose"))):
+        idle = [k for k in need if counts[k] == 0]
+        if idle:
+            raise AssertionError(f"the {path} path never launched {idle}")
+    times = phase_times(est, rng, card)
     del est
     phase_train_times(card)
-    log(json.dumps({"kernels": [{
-        "name": "decode_pose", "route": "cuda",
-        "source": "deepcut_tpu_torch/csrc/decode_pose.cu",
-        "replaces": "deepcut_tpu/ops/pallas_decode.py:63",
-        "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}]}))
+    log(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": serving[name] + training[name], "max_abs_err": errs[name],
+         "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
+         "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",
+         "library_ms": times[name]["library_ms"]}
+        for name, (src, rep) in KERNELS.items()]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

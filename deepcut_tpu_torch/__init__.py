@@ -3,14 +3,17 @@
 It mirrors `deepcut_tpu`'s module tree (``ops/``, ``models/``, ``pose/``,
 ``solver/``, ``parallel/``, ``tools/``) so that each counterpart sits at the
 same relative path, and is held against that package by the
-``tests/test_torch_*.py`` parity tests. It imports ``torch`` and never
-``jax``; the jax-free modules of `deepcut_tpu` (``constants``, ``proto``,
-``data.pipeline``, ``pose.targets``, ``pose.evaluate``, ``pose.demo``'s
-drawing helpers) are imported rather than copied.
+``tests/test_torch_*.py`` parity tests. It imports ``torch`` and neither
+``jax`` nor `deepcut_tpu`: what it needs of the JAX package's jax-free
+modules it keeps as its own copies under the same names (``constants``,
+``proto``, ``data``, ``pose.targets``, ``pose.aux_targets``,
+``pose.augment``, the host half of ``pose.targets_device``, ``runtime``'s
+C++ rasterizer), held against the originals by tests/test_torch_data.py.
 
 - ``deepcut_tpu_torch.ops``      — conv/deconv/pool/norm/activations on NCHW
-  tensors, the fork's losses, and the hand-written CUDA decode kernel
-  (``ops.cuda_decode``, source in ``csrc/``)
+  tensors, the fork's losses, and the hand-written CUDA kernels, the decode
+  (``ops.cuda_decode``) and the serving conv's epilogue
+  (``ops.conv_epilogue``), sources in ``csrc/``
 - ``deepcut_tpu_torch.models``   — the dilated ResNet part detector as an
   ``nn.Module`` (serving and training forwards), the training objective,
   the JAX-layout <-> torch-layout weight converter
@@ -20,8 +23,12 @@ drawing helpers) are imported rather than copied.
 - ``deepcut_tpu_torch.parallel`` — the one-device train and eval steps
 - ``deepcut_tpu_torch.tools``    — the ``train`` command line
 
-Importing the package builds nothing: the CUDA kernel is compiled with
-``nvcc`` at its first launch on a CUDA tensor.
+- ``deepcut_tpu_torch.data``, ``proto``, ``runtime`` — the host input
+  pipeline, the Caffe codecs and the C++ target rasterizer (own copies)
+
+Importing the package builds nothing: each CUDA kernel is compiled with
+``nvcc`` at its first launch on a CUDA tensor, the rasterizer with ``g++``
+at its first use (`native.build`, into ``build/deepcut_tpu_torch/``).
 """
 
 __version__ = "0.1.0"

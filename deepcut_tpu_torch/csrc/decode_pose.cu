@@ -1,38 +1,71 @@
-// Fused pose decode for Hopper (sm_90a): masked per-joint argmax over the
-// part-probability maps, the location-refinement gather at the argmax, and
-// the 5-row pose.
+// Fused pose decode for Hopper (sm_90a): per-joint masked argmax, the
+// location-refinement gather at the argmax, and the 5-row pose. Two entries
+// of one source:
+//
+// - decode_fused_launch, the serving path's: reads the heads' fused map
+//   (N, C >= 3J, h, w) before it is sliced, computes the sigmoid of the J
+//   pose logits itself, and takes the valid rows / columns and the scale by
+//   value. It leaves out the f32 head copies, the sigmoid launch and the
+//   host-to-device copies of the valid sizes that surrounded the first
+//   kernel.
+// - decode_pose_launch, for paths that already hold probability maps
+//   (scoremaps(), the tiled HD path, averaged pyramids): (N, J, h, w) f32
+//   prob and (N, 2J, h, w) f32 loc, one block per (image, joint).
 //
 // Replaces the TPU kernel deepcut_tpu/ops/pallas_decode.py:30-78
 // (_argmax_kernel launched by joint_argmax, wrapped by decode_pose_pallas)
 // together with the XLA decode around it, deepcut_tpu/pose/decode.py:27-62,
 // including the bucket mask that the Pallas kernel lacks.
 //
-// Inputs (all on the device, contiguous): prob (N, J, h, w) f32,
-// loc (N, 2J, h, w) f32, vh / vw (N,) int32 valid rows / columns of each
-// image's cell grid. Output: (N, 5, J) f32 rows [x, y, conf, off_y, off_x].
+// Output of both: (N, 5, J) f32 rows [x, y, conf, off_y, off_x].
 //
-// Bound: it reads N*J*h*w*4 bytes of prob once (about 0.4 MB for one image
-// at a 688 canvas, 14 joints on an 86 x 86 grid) plus two loc values per
-// joint, and does a handful of integer and compare operations per cell. At
-// these sizes one launch is far below a microsecond of HBM time, so it is
-// bound by launch latency; it exists to replace the XLA decode's several
-// kernels (mask, argmax, max, gather, stack) with one launch.
+// Order: jnp.argmax's. NaN above every number (the first NaN wins), then
+// the larger value, then the SMALLER index, so ties go to the first
+// position exactly as on the TPU. Ties are common on the bf16 serving path,
+// and the pose then depends on this rule alone. The pose arithmetic uses the
+// _rn intrinsics so nvcc cannot contract it into FMAs: it rounds as the f32
+// reference does, step by step in the same order. The sigmoid is PyTorch's
+// CUDA expression, 1 / (1 + expf(-x)), compiled without fast math, so the
+// confidences are those of torch.sigmoid on the card.
 //
-// Design: the TPU kernel walks 2048-position tiles along a SEQUENTIAL grid
-// and carries the running (max, argmax) in its output block; Hopper blocks
-// run in no order, so here one block owns one (n, j) map. Each thread scans
-// a stride of positions in increasing order, then the block reduces its
-// (value, index) pairs by warp shuffle and shared memory. The order is
-// jnp.argmax's: NaN above every number (the first NaN wins), then the larger
-// value, then the SMALLER index, so ties go to the first position exactly
-// as on the TPU. Ties are common on the bf16 serving path, and the pose then
-// depends on this rule alone. The pose arithmetic uses the _rn intrinsics so
-// nvcc cannot contract it into FMAs: it rounds as the f32 reference does,
-// step by step in the same order.
+// Bound (fused entry): bytes. The function needs the J logits of each valid
+// cell once (at (4, 14, 88, 88) f32, 1.73 MB: 0.52 us at 3.35 TB/s) plus two
+// loc values per joint, and writes N*5*J floats; the sigmoid and the
+// compares are a few operations per byte. The map was written by the heads'
+// last epilogue a moment before and sits in the 50 MB L2.
+//
+// Design (fused entry), against the first kernel's 14 blocks at batch 1, a
+// divide and a scalar 4-byte load per cell:
+// - one thread-block CLUSTER per image, 16 blocks where the card can
+//   schedule that many in one cluster and 8 otherwise (host probe below).
+//   Each block takes a band of the image's valid rows for all J joints. A
+//   thread is (cell group, joint): 32 groups of 16 joint lanes, each thread
+//   one running (value, index) pair over its group's cells, so the two
+//   groups of a warp meet in one shuffle and the 16 warps in shared memory
+//   (J pairs per thread would need J warp-shuffle reductions, each as long
+//   as this one). The blocks reduce through distributed shared memory:
+//   every block writes its J pairs into block 0's shared memory
+//   (map_shared_rank), the cluster syncs once, and block 0 reduces them and
+//   writes the pose while the others have left;
+// - each block copies its band's logits, only those, into shared memory
+//   with asynchronous copies (cp.async), the whole band at once where it
+//   fits in 200 KB, so every copy is in flight before one wait. A cell's J
+//   logits are 4J contiguous bytes of a channels_last map; a copy moves the
+//   widest granule they allow, 16 bytes where J and C are multiples of 4, 8
+//   bytes at J = 14 (56 bytes), else 4: a third of the bytes that copying
+//   whole rows, loc channels included, would move. A thread's (row, column)
+//   advances by a step fixed per block, so no integer divide is spent per
+//   cell;
+// - the valid sizes, strides and scale arrive by value in the kernel's
+//   parameters (FusedArgs), so nothing is copied to the card per call.
 
 #include <climits>
 #include <cmath>
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -41,6 +74,25 @@ constexpr int kWarps = kThreads / 32;
 constexpr float kStride = 8.0f;
 constexpr float kHalfStride = 4.0f;
 constexpr float kLocrefScale = 7.2801098892805181f;  // sqrt(53)
+
+constexpr int kFusedThreads = 512;
+constexpr int kFusedWarps = kFusedThreads / 32;
+constexpr int kMaxJoints = 16;   // joint lanes of a fused block: thread = (cell group, joint)
+constexpr int kCellGroups = kFusedThreads / kMaxJoints;
+constexpr int kMaxCluster = 16;
+constexpr int kMaxBatch = 64;    // images per fused launch (FusedArgs capacity)
+constexpr int kStageFloats = 51200;  // at most 200 KB of staged logits per block
+
+struct FusedArgs {
+  long long sn, sh;  // element strides of image and row; the channel stride is 1
+                     // and the column stride C (a channels_last map)
+  int n, J, h, w, C;
+  int granule;       // floats per staging copy: 4, 2 or 1 (16, 8 or 4 bytes)
+  int stage_floats;  // the dynamic shared memory, in floats (>= one row)
+  float scale;
+  int vh[kMaxBatch];
+  int vw[kMaxBatch];
+};
 
 // True when (v, i) comes before (bv, bi) in jnp.argmax's order.
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
@@ -60,6 +112,163 @@ __device__ __forceinline__ void warp_reduce(float& bv, int& bi) {
   }
 }
 
+// The pose of joint j from its argmax (cell bi of a w-wide grid, value bv)
+// and the two loc values there, into out[0..4][j] (row stride J).
+__device__ __forceinline__ void write_pose(float* o, int J, int bi, float bv, int w, float off_x,
+                                           float off_y, float scale) {
+  const int row = bi / w;
+  const int col = bi - row * w;
+  const float mx = __fmul_rn(off_x, kLocrefScale);
+  const float my = __fmul_rn(off_y, kLocrefScale);
+  const float x = __fadd_rn(__fadd_rn(__fmul_rn(static_cast<float>(col), kStride), kHalfStride), mx);
+  const float y = __fadd_rn(__fadd_rn(__fmul_rn(static_cast<float>(row), kStride), kHalfStride), my);
+  o[0 * J] = __fdiv_rn(x, scale);
+  o[1 * J] = __fdiv_rn(y, scale);
+  o[2 * J] = bv;
+  o[3 * J] = __fdiv_rn(my, scale);
+  o[4 * J] = __fdiv_rn(mx, scale);
+}
+
+// ---------------------------------------------------------------------------
+// Fused entry: one cluster per image
+// ---------------------------------------------------------------------------
+
+// Copies `bytes` (16, 8 or 4) from global to shared memory asynchronously.
+__device__ __forceinline__ void copy_async(float* dst, const float* src, int bytes) {
+  if (bytes == 16) {
+    __pipeline_memcpy_async(dst, src, 16);
+  } else if (bytes == 8) {
+    __pipeline_memcpy_async(dst, src, 8);
+  } else {
+    __pipeline_memcpy_async(dst, src, 4);
+  }
+}
+
+__global__ void __launch_bounds__(kFusedThreads)
+decode_fused_kernel(const float* __restrict__ fused, float* __restrict__ out,
+                    const __grid_constant__ FusedArgs a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n = blockIdx.y;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int J = a.J, C = a.C, w = a.w;
+  const int vh = min(a.vh[n], a.h), vw = min(a.vw[n], w);
+  const float* img = fused + static_cast<long long>(n) * a.sn;
+
+  extern __shared__ __align__(16) float stage[];  // [row][cell][J] logits of the band
+  __shared__ float s_val[kFusedWarps][kMaxJoints];
+  __shared__ int s_idx[kFusedWarps][kMaxJoints];
+  __shared__ float g_val[kMaxCluster][kMaxJoints];  // block 0: every block's pairs
+  __shared__ int g_idx[kMaxCluster][kMaxJoints];
+
+  const int r_begin = static_cast<int>(static_cast<long long>(vh) * rank / ranks);
+  const int r_end = static_cast<int>(static_cast<long long>(vh) * (rank + 1) / ranks);
+  const int ld = (vw * J + 3) & ~3;           // staged row stride, 16-byte aligned
+  const int rows_per_stage = ld > 0 ? max(1, a.stage_floats / ld) : 1;
+
+  // The copy: thread t moves part t % parts of cells t / parts, + step, ...
+  // of each staged row, `granule` floats at a time (one divide per thread).
+  const int gran = a.granule;
+  const int parts = J / gran;
+  const int step = kFusedThreads / parts;
+  const int part = threadIdx.x % parts;
+  const int cell0 = threadIdx.x / parts < step ? threadIdx.x / parts : vw;
+
+  // The scan: thread (g, j) takes joint j over cell group g's cells of the
+  // band, in increasing position; INT_MAX loses every tie, so the first
+  // cell always replaces the start.
+  const int j = threadIdx.x % kMaxJoints;
+  const int g = threadIdx.x / kMaxJoints;
+  const int k0 = vw > 0 ? g / vw : 0;
+  const int c0 = vw > 0 ? g - k0 * vw : 0;
+  const int dk = vw > 0 ? kCellGroups / vw : 0;
+  const int dc = vw > 0 ? kCellGroups - dk * vw : 0;
+  float bv = -INFINITY;
+  int bi = INT_MAX;
+
+  for (int ra = r_begin; ra < r_end && vw > 0; ra += rows_per_stage) {
+    const int rows = min(rows_per_stage, r_end - ra);
+    __syncthreads();  // the previous stage has been read
+    // every copy in flight before one wait: a loop of plain loads and
+    // stores would wait an L2 round trip per step
+    for (int k = 0; k < rows; ++k) {
+      const float* src = img + static_cast<long long>(ra + k) * a.sh + part * gran;
+      float* dst = stage + k * ld + part * gran;
+      for (int c = cell0; c < vw; c += step)
+        copy_async(dst + c * J, src + static_cast<long long>(c) * C, gran * 4);
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    if (j < J) {
+      for (int k = k0, c = c0; k < rows;) {
+        const float p = 1.0f / (1.0f + expf(-stage[k * ld + c * J + j]));
+        const int idx = (ra + k) * w + c;
+        if (better(p, idx, bv, bi)) {
+          bv = p;
+          bi = idx;
+        }
+        k += dk;
+        c += dc;
+        if (c >= vw) {
+          c -= vw;
+          ++k;
+        }
+      }
+    }
+  }
+
+  // block: lanes j and j + 16 of a warp hold the same joint; then one
+  // thread per joint over the warps, which writes the block's pair into
+  // block 0's shared memory
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float ov = __shfl_down_sync(0xffffffffu, bv, kMaxJoints);
+  const int oi = __shfl_down_sync(0xffffffffu, bi, kMaxJoints);
+  if (better(ov, oi, bv, bi)) {
+    bv = ov;
+    bi = oi;
+  }
+  if (lane < kMaxJoints) {
+    s_val[warp][lane] = bv;
+    s_idx[warp][lane] = bi;
+  }
+  __syncthreads();
+  if (threadIdx.x < J) {  // here g == 0 and j == threadIdx.x
+    float v = s_val[0][j];
+    int i = s_idx[0][j];
+    for (int q = 1; q < kFusedWarps; ++q) {
+      if (better(s_val[q][j], s_idx[q][j], v, i)) {
+        v = s_val[q][j];
+        i = s_idx[q][j];
+      }
+    }
+    *cluster.map_shared_rank(&g_val[rank][j], 0) = v;
+    *cluster.map_shared_rank(&g_idx[rank][j], 0) = i;
+  }
+  cluster.sync();  // every block's pairs are in block 0
+  if (rank != 0 || threadIdx.x >= J) return;
+
+  float v = g_val[0][j];
+  int i = g_idx[0][j];
+  for (int r = 1; r < ranks; ++r) {
+    if (better(g_val[r][j], g_idx[r][j], v, i)) {
+      v = g_val[r][j];
+      i = g_idx[r][j];
+    }
+  }
+  if (i == INT_MAX) i = 0;  // no valid cell: the plain version's argmax of all -inf
+  const int row = i / w;
+  const int col = i - row * w;
+  const float* at = img + static_cast<long long>(row) * a.sh + static_cast<long long>(col) * C;
+  write_pose(out + static_cast<long long>(n) * 5 * J + j, J, i, v, w, at[J + 2 * j],
+             at[J + 2 * j + 1], a.scale);
+}
+
+// ---------------------------------------------------------------------------
+// Probability-map entry: one block per (image, joint)
+// ---------------------------------------------------------------------------
+
 __global__ void __launch_bounds__(kThreads)
 decode_pose_kernel(const float* __restrict__ prob, const float* __restrict__ loc,
                    const int* __restrict__ vh, const int* __restrict__ vw,
@@ -71,8 +280,6 @@ decode_pose_kernel(const float* __restrict__ prob, const float* __restrict__ loc
   const int rows = vh[n];
   const int cols = vw[n];
 
-  // INT_MAX loses every tie, so the first scanned cell always replaces the
-  // start value, even when it is -inf.
   float bv = -INFINITY;
   int bi = INT_MAX;
   for (int p = threadIdx.x; p < P; p += kThreads) {
@@ -101,33 +308,109 @@ decode_pose_kernel(const float* __restrict__ prob, const float* __restrict__ loc
   warp_reduce(bv, bi);
   if (lane != 0) return;
 
-  const int row = bi / w;
-  const int col = bi - row * w;
   const float* lj = loc + (static_cast<size_t>(n) * 2 * J + 2 * j) * P;
-  const float off_x = lj[bi];
-  const float off_y = lj[P + bi];
-  const float mx = __fmul_rn(off_x, kLocrefScale);
-  const float my = __fmul_rn(off_y, kLocrefScale);
-  const float x = __fadd_rn(__fadd_rn(__fmul_rn(static_cast<float>(col), kStride), kHalfStride), mx);
-  const float y = __fadd_rn(__fadd_rn(__fmul_rn(static_cast<float>(row), kStride), kHalfStride), my);
-  float* o = out + static_cast<size_t>(n) * 5 * J + j;
-  o[0 * J] = __fdiv_rn(x, scale);
-  o[1 * J] = __fdiv_rn(y, scale);
-  o[2 * J] = bv;
-  o[3 * J] = __fdiv_rn(my, scale);
-  o[4 * J] = __fdiv_rn(mx, scale);
+  write_pose(out + static_cast<size_t>(n) * 5 * J + j, J, bi, bv, w, lj[bi], lj[P + bi], scale);
+}
+
+// The cluster size the fused entry launches with: 16 blocks (a non-portable
+// size) where the card can place such a cluster of this kernel, else 8.
+int fused_cluster_size() {
+  static int size = 0;
+  if (size != 0) return size;
+  size = 8;  // the portable cluster size
+  if (cudaFuncSetAttribute(decode_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kStageFloats * static_cast<int>(sizeof(float))) != cudaSuccess ||
+      cudaFuncSetAttribute(decode_fused_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                           1) != cudaSuccess) {
+    cudaGetLastError();
+    return size;
+  }
+  cudaLaunchConfig_t config = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kMaxCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.gridDim = dim3(kMaxCluster, 1, 1);
+  config.blockDim = dim3(kFusedThreads, 1, 1);
+  config.dynamicSmemBytes = kStageFloats * sizeof(float);
+  config.attrs = attr;
+  config.numAttrs = 1;
+  int clusters = 0;
+  if (cudaOccupancyMaxActiveClusters(&clusters, decode_fused_kernel, &config) == cudaSuccess &&
+      clusters > 0) {
+    size = kMaxCluster;
+  }
+  cudaGetLastError();
+  return size;
 }
 
 }  // namespace
 
-// Launches on `stream` of `device` and returns cudaGetLastError() (0 when
-// the launch was accepted). The caller checks shapes: n, J >= 1, h * w >= 1.
-extern "C" int decode_pose_launch(const float* prob, const float* loc, const int* vh,
-                                  const int* vw, float* out, int n, int J, int h, int w,
-                                  float scale, int device, cudaStream_t stream) {
+extern "C" {
+
+// Both entries launch on `stream` of `device` and return cudaGetLastError()
+// (0 when the launch was accepted). The caller checks shapes and layouts.
+
+int decode_fused_max_batch() { return kMaxBatch; }
+int decode_fused_max_joints() { return kMaxJoints; }
+int decode_fused_stage_floats() { return kStageFloats; }
+
+int decode_fused_cluster_size(int device) {
+  if (cudaSetDevice(device) != cudaSuccess) return 0;
+  return fused_cluster_size();
+}
+
+int decode_fused_launch(const float* fused, float* out, long long sn, long long sh, int n, int J,
+                        int h, int w, int C, int granule, float scale, const int* vh,
+                        const int* vw, int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  FusedArgs a = {};
+  a.sn = sn;
+  a.sh = sh;
+  a.n = n;
+  a.J = J;
+  a.h = h;
+  a.w = w;
+  a.C = C;
+  a.granule = granule;
+  a.scale = scale;
+  for (int i = 0; i < n; ++i) {
+    a.vh[i] = vh[i];
+    a.vw[i] = vw[i];
+  }
+  const int cs = fused_cluster_size();
+  // shared memory for the tallest band's logits (every row of it at once
+  // where it fits), at least one row
+  const int ld = (w * J + 3) & ~3;
+  const int band = (h + cs - 1) / cs;
+  a.stage_floats = band * ld < kStageFloats ? band * ld : (kStageFloats / ld) * ld;
+  cudaLaunchConfig_t config = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.gridDim = dim3(cs, n, 1);
+  config.blockDim = dim3(kFusedThreads, 1, 1);
+  config.dynamicSmemBytes = a.stage_floats * sizeof(float);
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, decode_fused_kernel, fused, out, a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int decode_pose_launch(const float* prob, const float* loc, const int* vh, const int* vw,
+                       float* out, int n, int J, int h, int w, float scale, int device,
+                       cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(J, n);
   decode_pose_kernel<<<grid, kThreads, 0, stream>>>(prob, loc, vh, vw, out, J, h, w, scale);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // extern "C"

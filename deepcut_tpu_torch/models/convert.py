@@ -1,7 +1,7 @@
 """Weights carried across from the JAX package's layout.
 
-The JAX package (and `deepcut_tpu.proto.caffemodel.load_deepercut_params`,
-which this port reuses to read ``.caffemodel`` files) keeps conv weights
+The JAX package (and `proto.caffemodel.load_deepercut_params`, the
+port's copy of its ``.caffemodel`` reader) keeps conv weights
 HWIO ``(kh, kw, Cin, Cout)`` and deconv weights in its native
 ``(kh, kw, Cin, Cout)`` order. PyTorch wants OIHW for `F.conv2d` and
 ``(Cin, Cout, kh, kw)`` for `F.conv_transpose2d`. The deconv weight is only
@@ -56,13 +56,13 @@ def params_to_numpy(params: Mapping[str, Mapping[str, torch.Tensor]]) -> Dict[st
 
 def load_caffemodel(path: str) -> Params:
     """A DeeperCut ``.caffemodel`` -> the port's f32 param dict on the CPU."""
-    from deepcut_tpu.proto.caffemodel import load_deepercut_params
+    from deepcut_tpu_torch.proto.caffemodel import load_deepercut_params
 
     return params_from_numpy(load_deepercut_params(path))
 
 
 def save_caffemodel(path: str, params: Mapping[str, Mapping[str, torch.Tensor]]) -> None:
     """The port's param dict -> a ``.caffemodel`` the reference reads."""
-    from deepcut_tpu.proto.caffemodel import save_caffemodel as save
+    from deepcut_tpu_torch.proto.caffemodel import save_caffemodel as save
 
     save(path, params_to_numpy(params))

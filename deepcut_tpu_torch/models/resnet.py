@@ -13,7 +13,11 @@ package's layouts onto it. `DeeperCut` holds such a dict as an
 
 As in the JAX package's serving path, the folded forward runs the trunk in
 ``cfg.compute_dtype`` (bf16) with weights pre-cast and f32 biases, and the
-heads come out in f32 with the sigmoid in f32. The unfolded forward is the
+heads come out in f32 with the sigmoid in f32. With bf16 it rounds where
+the JAX package rounds: activations and weights hold bf16 values in f32
+tensors, each conv sums exact products in f32 and its epilogue
+(`ops.conv_epilogue`) adds the f32 bias and rounds once, then adds the
+residual (rounded again) and applies ReLU (`ops.conv.conv2d_rounded`). The unfolded forward is the
 training one: f32 (or bf16 convs under ``mixed_train``), BN statistics
 held constant, optional per-stage recompute (``remat``). Note the geometry traps:
 the stride sits on the 1x1 ``branch2a`` / ``branch1`` convs (not the 3x3 as
@@ -30,9 +34,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from deepcut_tpu.constants import MEAN_BGR
+from deepcut_tpu_torch.constants import MEAN_BGR
 from deepcut_tpu_torch.ops.activations import relu, sigmoid
-from deepcut_tpu_torch.ops.conv import conv2d, deconv2d
+from deepcut_tpu_torch.ops.conv import conv2d, conv2d_rounded, deconv2d, deconv2d_rounded
 from deepcut_tpu_torch.ops.eltwise import crop_like
 from deepcut_tpu_torch.ops.norm import bn_scale_affine, scaled_stats
 from deepcut_tpu_torch.ops.pool import max_pool2d
@@ -226,9 +230,21 @@ def _stop_gradient(t: torch.Tensor) -> torch.Tensor:
     return t.detach() if t.requires_grad else t
 
 
+def _rounds_once(cfg: DeeperCutConfig, folded: bool) -> bool:
+    """The folded bf16 serving forward: `conv2d_rounded` convs, one rounding
+    after each f32 bias add as in the JAX package."""
+    return folded and cfg.compute_dtype == torch.bfloat16
+
+
 def _cbr(params: Mapping, x: torch.Tensor, name: str, cfg: DeeperCutConfig, cdt,
-         folded: bool, *, stride=1, pad=0, dilation=1, act=True) -> torch.Tensor:
+         folded: bool, *, stride=1, pad=0, dilation=1, act=True,
+         residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """conv [+ BN/Scale] [+ residual] [+ ReLU]; a residual only on the
+    `_rounds_once` path, where the epilogue adds it."""
     p = params[name]
+    if _rounds_once(cfg, folded):
+        return conv2d_rounded(x, p["w"], p.get("b"), stride=stride, pad=pad, dilation=dilation,
+                              residual=residual, relu=act)
     y = conv2d(x, p["w"], p["b"] if "b" in p else None, stride=stride,
                pad=pad, dilation=dilation, compute_dtype=cdt)
     if not folded:
@@ -261,6 +277,9 @@ def run_trunk(params: Mapping, x: torch.Tensor, cfg: DeeperCutConfig, *,
     (`torch.utils.checkpoint`) instead of keeping its activations."""
     cdt = _compute_dtype(cfg, folded)
     x = prepare_input(x).to(cdt or torch.float32)
+    rounded = _rounds_once(cfg, folded)
+    if rounded:
+        x = x.float()  # bf16 values in f32, the operand the serving convs take
     y = _cbr(params, x, "conv1", cfg, cdt, folded, stride=2, pad=3)
     y = max_pool2d(y, kernel=3, stride=2)
     skip, skip_name = None, _skip_block(cfg)
@@ -277,6 +296,9 @@ def run_trunk(params: Mapping, x: torch.Tensor, cfg: DeeperCutConfig, *,
                     shortcut = y
                 z = _cbr(params, y, f"res{block}_branch2a", cfg, cdt, folded, stride=bs)
                 z = _cbr(params, z, f"res{block}_branch2b", cfg, cdt, folded, pad=d, dilation=d)
+                if rounded:  # relu(shortcut + z) in branch2c's epilogue
+                    return _cbr(params, z, f"res{block}_branch2c", cfg, cdt, folded,
+                                residual=shortcut)
                 z = _cbr(params, z, f"res{block}_branch2c", cfg, cdt, folded, act=False)
                 return relu(shortcut + z)
 
@@ -286,37 +308,58 @@ def run_trunk(params: Mapping, x: torch.Tensor, cfg: DeeperCutConfig, *,
     return y, skip
 
 
-def compute_heads(params: Mapping, res5c: torch.Tensor, skip: Optional[torch.Tensor],
-                  cfg: DeeperCutConfig, *, compute_dtype: Optional[torch.dtype] = None,
-                  heads: Optional[Sequence[str]] = None) -> Dict[str, torch.Tensor]:
+def fused_heads(params: Mapping, res5c: torch.Tensor, skip: Optional[torch.Tensor],
+                cfg: DeeperCutConfig, *, compute_dtype: Optional[torch.dtype] = None,
+                heads: Optional[Sequence[str]] = None, folded: bool = False) -> torch.Tensor:
     """The enabled heads as ONE deconv (k3 s2 p0) over res5c plus ONE 1x1
     skip conv, over concatenated output channels, summed after a top-left
-    crop of the upsampled map; then sliced per head.
+    crop of the upsampled map: the (N, C, h, w) map before it is sliced, in
+    the channel order of `_head_channels` ("pose", "locref", "next").
 
     heads: optional subset of ("pose", "locref", "next"); "pose" is
-    mandatory. Returns f32 contiguous NCHW maps: 'fc_pose', 'prob'
-    (sigmoid, in f32) and, when computed, 'loc_pred' and 'next_pred'."""
+    mandatory. On the `_rounds_once` path the sum is the skip conv's
+    epilogue, with the cropped deconv output as its residual, and the map
+    holds bf16 values in f32 (channels_last on the card); otherwise it is
+    in the convs' dtype."""
     if skip is None:
         raise ValueError("compute_heads: the config has no stride-8 skip tap")
-    head_list = _head_channels(cfg)
-    if heads is not None:
-        head_list = [(n, ch) for n, ch in head_list if n in heads]
-        if not any(n == "pose" for n, _ in head_list):
-            raise ValueError("compute_heads: the 'pose' head is mandatory")
+    head_list = _head_list(cfg, heads)
     up_p = [params[f"res5c_up_{n}"] for n, _ in head_list]
     sk_p = [params[f"res3d_{n}"] for n, _ in head_list]
     wup = torch.cat([p["w"] for p in up_p], dim=1)
     bup = torch.cat([p["b"] for p in up_p])
     wsk = torch.cat([p["w"] for p in sk_p], dim=0)
     bsk = torch.cat([p["b"] for p in sk_p])
+    if _rounds_once(cfg, folded):
+        up = deconv2d_rounded(res5c, wup, bup, stride=2)
+        return conv2d_rounded(skip, wsk, bsk, residual=crop_like(up, skip.shape, axis=2))
     up = deconv2d(res5c, wup, bup, stride=2, compute_dtype=compute_dtype)
     sk = conv2d(skip, wsk, bsk, compute_dtype=compute_dtype)
-    fused = crop_like(up, sk.shape, axis=2) + sk
+    return crop_like(up, sk.shape, axis=2) + sk
 
+
+def _head_list(cfg: DeeperCutConfig, heads: Optional[Sequence[str]]) -> List[Tuple[str, int]]:
+    head_list = _head_channels(cfg)
+    if heads is not None:
+        head_list = [(n, ch) for n, ch in head_list if n in heads]
+        if not any(n == "pose" for n, _ in head_list):
+            raise ValueError("compute_heads: the 'pose' head is mandatory")
+    return head_list
+
+
+def compute_heads(params: Mapping, res5c: torch.Tensor, skip: Optional[torch.Tensor],
+                  cfg: DeeperCutConfig, *, compute_dtype: Optional[torch.dtype] = None,
+                  heads: Optional[Sequence[str]] = None,
+                  folded: bool = False) -> Dict[str, torch.Tensor]:
+    """`fused_heads`, sliced per head. Returns f32 contiguous NCHW maps:
+    'fc_pose', 'prob' (sigmoid, in f32) and, when computed, 'loc_pred' and
+    'next_pred'."""
+    fused = fused_heads(params, res5c, skip, cfg, compute_dtype=compute_dtype, heads=heads,
+                        folded=folded)
     names = {"pose": "fc_pose", "locref": "loc_pred", "next": "next_pred"}
     outs: Dict[str, torch.Tensor] = {}
     off = 0
-    for n, ch in head_list:
+    for n, ch in _head_list(cfg, heads):
         outs[names[n]] = fused[:, off:off + ch].to(
             torch.float32, memory_format=torch.contiguous_format)
         off += ch
@@ -330,13 +373,13 @@ def forward(params: Mapping, x: torch.Tensor, cfg: DeeperCutConfig = DeeperCutCo
     mean-subtracted BGR (or uint8). Returns the `compute_heads` dict; the
     h = ceil(H/8) grid of the reference.
 
-    folded=True takes BN-folded params and computes in ``cfg.compute_dtype``.
-    folded=False takes the raw params with BN/Scale entries: f32, or with
+    folded=True takes BN-folded params and computes in ``cfg.compute_dtype``
+    (with bf16, rounding once per conv: module docstring). folded=False takes the raw params with BN/Scale entries: f32, or with
     ``cfg.mixed_train`` bf16 convs whose outputs round to bf16 before the
     bf16 bias add (the JAX package's mixed training)."""
     res5c, skip = run_trunk(params, x, cfg, folded=folded)
     return compute_heads(params, res5c, skip, cfg, compute_dtype=_compute_dtype(cfg, folded),
-                         heads=heads)
+                         heads=heads, folded=folded)
 
 
 # --------------------------------------------------------------------------
@@ -365,6 +408,11 @@ class DeeperCut(nn.Module):
             raise ValueError("DeeperCut: only the unfolded forward trains")
         self.cfg = cfg
         self.folded = folded
+        if _rounds_once(cfg, folded):
+            # the serving convs take bf16 values in f32: widened once here,
+            # not per call
+            params = {name: {k: (v.to(torch.bfloat16).float() if k == "w" else v)
+                             for k, v in p.items()} for name, p in params.items()}
         self.layers = nn.ModuleDict({
             name: nn.ParameterDict({
                 k: nn.Parameter(torch.as_tensor(v), requires_grad=trainable and is_trainable(name))
@@ -389,7 +437,17 @@ class DeeperCut(nn.Module):
     def compute_heads(self, res5c: torch.Tensor, skip: torch.Tensor,
                       heads: Optional[Sequence[str]] = None) -> Dict[str, torch.Tensor]:
         return compute_heads(self.param_dict(), res5c, skip, self.cfg,
-                             compute_dtype=_compute_dtype(self.cfg, self.folded), heads=heads)
+                             compute_dtype=_compute_dtype(self.cfg, self.folded), heads=heads,
+                             folded=self.folded)
+
+    def fused_heads(self, x: torch.Tensor, heads: Optional[Sequence[str]] = None
+                    ) -> torch.Tensor:
+        """The trunk and `fused_heads` over an input batch: the unsliced
+        (N, C, h, w) head map, which the serving decode reads directly."""
+        res5c, skip = self.run_trunk(x)
+        return fused_heads(self.param_dict(), res5c, skip, self.cfg,
+                           compute_dtype=_compute_dtype(self.cfg, self.folded), heads=heads,
+                           folded=self.folded)
 
     def forward(self, x: torch.Tensor, heads: Optional[Sequence[str]] = None
                 ) -> Dict[str, torch.Tensor]:

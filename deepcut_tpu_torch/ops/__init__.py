@@ -1,8 +1,9 @@
 """Op library on NCHW tensors (the counterparts of `deepcut_tpu.ops`).
 
 Convolutions, deconvolution and pooling go to PyTorch / cuDNN, as the JAX
-package left them to XLA outside any Pallas kernel. The one hand-written
-kernel is the fused pose decode in `cuda_decode`.
+package left them to XLA outside any Pallas kernel. The hand-written CUDA
+kernels are the fused pose decode (`cuda_decode`) and the serving conv's
+epilogue (`conv_epilogue`: f32 bias, one bf16 rounding, residual, ReLU).
 """
 
 from deepcut_tpu_torch.ops.conv import conv2d, deconv2d, conv_output_size, deconv_output_size

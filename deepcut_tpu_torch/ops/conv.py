@@ -13,8 +13,18 @@ Weight layouts are PyTorch's: conv OIHW ``(Cout, Cin/g, kh, kw)``, deconv
 the transpose of a conv, so the deconv weight is NOT spatially flipped (the
 JAX package flips because it lowers deconv as a conv with ``lhs_dilation``).
 
-``compute_dtype`` casts input and weight (bf16 on the serving path; cuDNN
-accumulates in f32); the result is returned in the input's dtype.
+``compute_dtype`` casts input and weight (bf16 under mixed-precision
+training; cuDNN accumulates in f32); the result is returned in the input's
+dtype.
+
+`conv2d_rounded` / `deconv2d_rounded` are the folded bf16 serving path.
+They round as the JAX package's serving conv does, once: operands hold bf16
+values in f32 tensors, the convolution runs in f32 with TF32 allowed for
+that call alone (TF32 keeps 10 mantissa bits and bf16 7, so every product
+is exact and the sum is f32, as XLA's bf16 conv with
+``preferred_element_type=f32``), and `ops.conv_epilogue` adds the f32 bias,
+rounds to bf16 once and applies the optional residual and ReLU. On the CPU
+the convolution is a plain f32 `F.conv2d`.
 """
 
 from __future__ import annotations
@@ -23,6 +33,8 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from deepcut_tpu_torch.ops.conv_epilogue import conv_epilogue
 
 
 def conv_output_size(size: int, kernel: int, stride: int, pad: int, dilation: int = 1) -> int:
@@ -98,3 +110,47 @@ def deconv2d(
     y = F.conv_transpose2d(xc, wc, bc, stride=_pair(stride), padding=_pair(pad),
                            dilation=_pair(dilation), groups=groups)
     return y.to(x.dtype)
+
+
+def exact_conv(x: torch.Tensor, w: torch.Tensor, *, stride=1, pad=0, dilation=1,
+               groups: int = 1, transposed: bool = False) -> torch.Tensor:
+    """Bias-free f32 convolution (or transposed convolution) of operands
+    that hold bf16 values: exact products, f32 sums. On the card cuDNN with
+    TF32 allowed for this call alone, through the aten ops that take the
+    flag per call (the global flag belongs to the caller, and
+    `torch.backends.cudnn.flags()` would reset `benchmark` and
+    `deterministic`); on the CPU `F.conv2d` in f32. A bf16 weight is
+    widened here; the serving module stores its weights widened once."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"exact_conv: x must be f32 holding bf16 values, got {x.dtype}")
+    w = w.float()
+    stride, pad, dilation = _pair(stride), _pair(pad), _pair(dilation)
+    if x.device.type == "cuda":
+        cudnn = torch.backends.cudnn
+        if transposed:
+            return torch.ops.aten.cudnn_convolution_transpose(
+                x, w, pad, (0, 0), stride, dilation, groups, cudnn.benchmark,
+                cudnn.deterministic, True)
+        return torch.ops.aten.cudnn_convolution(
+            x, w, pad, stride, dilation, groups, cudnn.benchmark, cudnn.deterministic, True)
+    fn = F.conv_transpose2d if transposed else F.conv2d
+    return fn(x, w, None, stride=stride, padding=pad, dilation=dilation, groups=groups)
+
+
+def conv2d_rounded(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *,
+                   stride=1, pad=0, dilation=1, groups: int = 1,
+                   residual: Optional[torch.Tensor] = None, relu: bool = False) -> torch.Tensor:
+    """The serving conv: `exact_conv` then `conv_epilogue` (bias, one bf16
+    rounding, optional residual add rounded again, optional ReLU). x and
+    residual hold bf16 values in f32; so does the result."""
+    y = exact_conv(x, w, stride=stride, pad=pad, dilation=dilation, groups=groups)
+    return conv_epilogue(y, b, residual, relu)
+
+
+def deconv2d_rounded(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *,
+                     stride=1, pad=0, dilation=1, groups: int = 1) -> torch.Tensor:
+    """The serving deconv (weight layout as `deconv2d`), rounded as
+    `conv2d_rounded`."""
+    y = exact_conv(x, w, stride=stride, pad=pad, dilation=dilation, groups=groups,
+                   transposed=True)
+    return conv_epilogue(y, b)

@@ -6,7 +6,7 @@ solver.cpp:193-275) — device warp, device targets, forward, the fork's
 losses, backward, the Caffe update rule. Passing a mesh raises: data- and
 spatially-parallel training belong to the multi-GPU slice.
 
-A host batch (`deepcut_tpu.data.pipeline.PoseDataSource`, NHWC numpy)
+A host batch (`data.pipeline.PoseDataSource`, NHWC numpy)
 crosses to the device once, from pinned memory without blocking the host,
 and there the image and any dense target maps become NCHW (a permute: the
 NHWC bytes are the channels_last layout the convolutions take).

@@ -30,7 +30,7 @@ from typing import Dict, Mapping
 
 import torch
 
-from deepcut_tpu.constants import MEAN_BGR
+from deepcut_tpu_torch.constants import MEAN_BGR
 
 PAD_BORDER = 64   # data/pipeline.PAD_BORDER (pose_data_layer.cpp:637)
 ROW_BLOCK = 16    # the reference warps canvas rows in blocks of 16

@@ -19,7 +19,23 @@ from typing import List, Optional
 
 import numpy as np
 
-from deepcut_tpu.pose.demo import COLORS, npcircle
+# reference colour table (pose_demo.py:126-128)
+COLORS = [[255, 0, 0], [0, 255, 0], [0, 0, 255], [0, 245, 255], [255, 131, 250],
+          [255, 255, 0], [255, 0, 0], [0, 255, 0], [0, 0, 255], [0, 245, 255],
+          [255, 131, 250], [255, 255, 0], [0, 0, 0], [255, 255, 255]]
+
+
+def npcircle(image: np.ndarray, cx: float, cy: float, radius: int, color,
+             transparency: float = 0.0) -> None:
+    """Draw a circle in-place (reference pose_demo.py:29-38)."""
+    radius, cx, cy = int(radius), int(cx), int(cy)
+    y, x = np.ogrid[-radius:radius, -radius:radius]
+    index = x ** 2 + y ** 2 <= radius ** 2
+    sl = image[cy - radius:cy + radius, cx - radius:cx + radius]
+    if sl.shape[:2] != index.shape:
+        return  # circle clipped at border; reference would error out
+    sl[index] = (sl[index].astype(np.float32) * transparency +
+                 np.asarray(color, np.float32) * (1.0 - transparency)).astype(np.uint8)
 
 
 def predict_pose_from(image_name: str, model_def: str = "", model_bin: str = "",

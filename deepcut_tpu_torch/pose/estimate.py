@@ -9,8 +9,8 @@ the best scale by its lowest joint confidence wins.
 
 On the device: the preprocess (f32 interpolation-matrix products), the
 network, and the decode, which is the hand-written CUDA kernel
-(`ops.cuda_decode`) on a CUDA device, so only the 5 x J pose crosses back to
-the host. Canvas sizes are rounded up to a bucket grid with the argmax
+(`ops.cuda_decode`) on a CUDA device, reading the heads' unsliced map on
+the batched paths, so only the 5 x J pose crosses back to the host. Canvas sizes are rounded up to a bucket grid with the argmax
 masked to each image's true grid, as in the JAX package; in place of its
 per-bucket jit programs this estimator keeps a per-size cache of
 device-resident bilinear matrices. The tiling plan is the JAX package's
@@ -25,7 +25,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from deepcut_tpu.constants import MEAN_BGR
+from deepcut_tpu_torch.constants import MEAN_BGR
 from deepcut_tpu_torch.models.resnet import (
     DeeperCut, DeeperCutConfig, Params, cast_params, deepercut_config, fold_bn)
 from deepcut_tpu_torch.ops import cuda_decode
@@ -172,14 +172,6 @@ class PoseEstimator:
             outs = self.model(canvases.permute(0, 3, 1, 2), heads=HEADS)
         return outs["prob"], outs["loc_pred"]
 
-    def _decode(self, prob: torch.Tensor, loc: torch.Tensor, valid_h: Sequence[int],
-                valid_w: Sequence[int], scale: float) -> torch.Tensor:
-        """Masked decode of each image's ceil(valid/8) cell grid: the CUDA
-        kernel on the card, the plain version on the CPU."""
-        vh, vw = (torch.tensor([-(-int(v) // int(STRIDE)) for v in valid], dtype=torch.int32,
-                               device=self.device) for valid in (valid_h, valid_w))
-        return cuda_decode.decode_pose(prob, loc, vh, vw, scale)
-
     def _decode_whole(self, prob: torch.Tensor, loc: torch.Tensor, scale: float) -> np.ndarray:
         """Unmasked decode of one image's (J, h, w) / (2J, h, w) maps -> (5, J)."""
         h, w = prob.shape[1:]
@@ -191,12 +183,22 @@ class PoseEstimator:
 
     def _batched(self, canvases: torch.Tensor, valid_h: Sequence[int],
                  valid_w: Sequence[int], scale: float) -> np.ndarray:
-        """CNN + decode over a canvas batch in BATCH_CHUNK chunks -> (N, 5, J)."""
-        c = self.BATCH_CHUNK
+        """CNN + decode over a canvas batch in BATCH_CHUNK chunks -> (N, 5, J).
+        The decode reads the heads' unsliced map and masks each image to
+        its ceil(valid/8) cell grid, the valid sizes passed by value: the
+        CUDA kernel's fused entry on the card, its plain version on the
+        CPU."""
+        c, stride = self.BATCH_CHUNK, int(STRIDE)
         poses = []
         for i in range(0, canvases.shape[0], c):
-            prob, loc = self._maps(canvases[i:i + c])
-            poses.append(self._decode(prob, loc, valid_h[i:i + c], valid_w[i:i + c], scale))
+            with torch.inference_mode():
+                fused = self.model.fused_heads(canvases[i:i + c].permute(0, 3, 1, 2), heads=HEADS)
+            # a no-op for the serving heads (f32, channels_last); the
+            # training forwards' eval may hand bf16 or another layout
+            fused = fused.to(torch.float32, memory_format=torch.channels_last)
+            poses.append(cuda_decode.decode_fused(
+                fused, self.cfg.num_joints, [-(-int(v) // stride) for v in valid_h[i:i + c]],
+                [-(-int(v) // stride) for v in valid_w[i:i + c]], scale))
         return torch.cat(poses).cpu().numpy()
 
     # -- public API --------------------------------------------------------

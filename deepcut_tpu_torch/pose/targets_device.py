@@ -1,11 +1,11 @@
 """On-device target rasterization: compact annotations -> dense NCHW maps.
 
-Counterpart of the device half of `deepcut_tpu.pose.targets_device`
-(`make_batch_rasterizer`). The host half — `compact_sample`,
-`record_limits`, `ANNO_KEYS` — is the JAX package's own jax-free code,
-which `PoseDataSource(device_targets=True)` already runs; this module turns
-its ``anno_*`` arrays into the dense target maps on the batch's device, so
-that only a few KB per sample cross from the host.
+Counterpart of `deepcut_tpu.pose.targets_device`, both halves. The host
+half — `compact_sample`, `record_limits`, `ANNO_KEYS` — is the port's own
+copy of the JAX package's jax-free code (held against it by
+tests/test_torch_data.py); `PoseDataSource(device_targets=True)` runs it
+and ships a few KB of ``anno_*`` arrays per sample. The device half turns
+those arrays into the dense target maps on the batch's device.
 
 The JAX code rasterizes one sample and `vmap`s it; here the batch dimension
 is written out, and every class is handled in one pass over a
@@ -19,13 +19,198 @@ becomes `torch.gather`.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+import dataclasses
+import math
+from typing import Dict, List, Mapping, Optional, Sequence
 
+import numpy as np
 import torch
 
-from deepcut_tpu.data.window_file import JointStats, default_stats
-from deepcut_tpu.pose import targets as T
-from deepcut_tpu.pose.targets_device import FLT_MAX
+from deepcut_tpu_torch.data.window_file import ImageRecord, JointStats, default_stats
+from deepcut_tpu_torch.pose import targets as T
+
+# --------------------------------------------------------------------------
+# Host half (numpy): the compact annotation of one sample
+# --------------------------------------------------------------------------
+
+FLT_MAX = float(np.finfo(np.float32).max)
+
+#: batch keys produced by compact_sample (all small; shipped each step)
+ANNO_KEYS = ("anno_cls", "anno_xy", "anno_person", "anno_joint_index",
+             "anno_scale", "anno_dims", "anno_neg_mask")
+
+
+@dataclasses.dataclass(frozen=True)
+class CompactLimits:
+    """Static padding sizes for the annotation arrays (per data source)."""
+
+    max_entries: int  # M: total (person, joint) entries incl. skip markers
+    max_people: int   # P
+
+
+def record_limits(records: Sequence[ImageRecord]) -> CompactLimits:
+    m = p = 1
+    for rec in records:
+        m = max(m, sum(len(pe.classes) for pe in rec.people))
+        p = max(p, len(rec.people))
+    return CompactLimits(max_entries=m, max_people=p)
+
+
+def _entry_arrays(record: ImageRecord, cfg: T.TargetConfig):
+    """Flatten (person, joint) entries in reference iteration order."""
+    J = cfg.num_classes
+    cls_l: List[int] = []
+    xy_l: List[np.ndarray] = []
+    person_l: List[int] = []
+    joint_index = np.full((max(len(record.people), 1), J), -1, np.int32)
+    for pidx, p in enumerate(record.people):
+        for k in range(len(p.classes)):
+            cls_l.append(int(p.classes[k]))
+            xy_l.append(np.asarray(p.xy[k], np.float32))
+            person_l.append(pidx)
+            if 1 <= p.classes[k] <= J:
+                joint_index[pidx, p.classes[k] - 1] = len(cls_l) - 1
+    cls_arr = np.asarray(cls_l, np.int32)
+    if cls_arr.size:
+        bad = (cls_arr < 1) | ((cls_arr > J) & (cls_arr != cfg.skip_class))
+        if bad.any():
+            raise ValueError(
+                f"joint classes {sorted(set(cls_arr[bad].tolist()))} out of "
+                f"range for num_classes={J} (skip_class={cfg.skip_class})")
+    xy_arr = (np.stack(xy_l).astype(np.float32) if cls_l
+              else np.zeros((0, 2), np.float32))
+    return cls_arr, xy_arr, np.asarray(person_l, np.int32), joint_index
+
+
+def _host_sampling_state(cls_arr, xy_arr, cfg: T.TargetConfig, scale, th, tw):
+    """(sample_mask, min_distance, num_positives) over the (th, tw) grid —
+    the inputs the reference's negative-sampling loop reads. Mirrors the
+    fg/skip math of targets.rasterize exactly (pose_data_layer.cpp:676-745)."""
+    SKIP = cfg.skip_class
+    gy, gx = np.meshgrid(np.arange(th), np.arange(tw), indexing="ij")
+    pt = np.stack([gx * T.STRIDE + T.HALF_STRIDE,
+                   gy * T.STRIDE + T.HALF_STRIDE],
+                  axis=-1).astype(np.float32) / scale
+    if not len(cls_arr):
+        empty = np.zeros((th, tw), bool)
+        return empty, np.full((th, tw), FLT_MAX, np.float32), 0
+    diff = xy_arr[None, None, :, :] - pt[:, :, None, :]
+    dist = np.sqrt(np.sum(diff * diff, axis=-1)).astype(np.float32)
+    min_dist = dist.min(axis=2)
+    if cfg.soft_labels:
+        flat_arg = np.argmin(dist, axis=2)
+        closest_joint = cls_arr[flat_arg]
+        scores = np.zeros((th, tw, SKIP + 1), np.float32)
+        for c in range(1, SKIP + 1):
+            m = cls_arr == c
+            if m.any():
+                d_c = dist[:, :, m].min(axis=2)
+                scores[:, :, c] = np.exp(-d_c ** 2 / (2 * cfg.gauss_blob_sigma ** 2))
+        closest_score = np.take_along_axis(
+            scores, closest_joint[..., None], axis=2)[..., 0]
+        is_fg = (1.0 - closest_score) <= 1 - T.FG_SCORE_THRESH
+        if (cls_arr == SKIP).any():
+            skip_sample = scores[:, :, SKIP] > T.FG_SCORE_THRESH
+        else:
+            skip_sample = np.zeros((th, tw), bool)
+    else:
+        is_fg = min_dist <= cfg.fg_threshold
+        if (cls_arr == SKIP).any():
+            m = cls_arr == SKIP
+            skip_sample = (dist[:, :, m].min(axis=2) <= cfg.fg_threshold)
+        else:
+            skip_sample = np.zeros((th, tw), bool)
+    return (is_fg | skip_sample), min_dist, int(np.sum(is_fg))
+
+
+def _draw_negative_mask(cfg: T.TargetConfig, sample_mask, min_distance,
+                        num_positives, th, tw, rng) -> np.ndarray:
+    """Reference negative-sampling loop (pose_data_layer.cpp:828-855),
+    emitting the sampled-cell mask instead of writing labels. Draw order is
+    identical to targets._fill_negatives_vec so RNG trajectories match."""
+    neg = np.zeros_like(sample_mask)
+    mask = sample_mask.copy()
+    max_neg = int(num_positives * (1.0 - cfg.fg_fraction) / cfg.fg_fraction)
+    num_neg = 0
+    for _ in range(max_neg * 10):
+        j = int(rng.randint(0, th))
+        i = int(rng.randint(0, tw))
+        if mask[j, i]:
+            continue
+        if cfg.bg_threshold is not None and min_distance[j, i] <= cfg.bg_threshold:
+            continue
+        neg[j, i] = True
+        mask[j, i] = True
+        num_neg += 1
+        if num_neg == max_neg:
+            break
+    return neg
+
+
+def compact_sample(
+    record: ImageRecord,
+    cfg: T.TargetConfig,
+    stats: Optional[JointStats] = None,
+    rng: Optional[np.random.RandomState] = None,
+    scale: Optional[float] = None,
+    limits: Optional[CompactLimits] = None,
+) -> Dict[str, np.ndarray]:
+    """Host half of the device-rasterizer pipeline: the compact annotation
+    arrays plus whatever targets stay host-built (RPN / segmentation — both
+    small). Consumes `rng` in exactly the order targets.rasterize does, so a
+    PoseDataSource in device-target mode replays the host mode's stream."""
+    if stats is None:
+        stats = default_stats(cfg.num_classes)
+    if rng is None:
+        rng = np.random.RandomState(0)
+    if scale is None:
+        scale = T.sample_scale(cfg, rng)
+    sh, sw, ih, iw = T.grid_geometry(record.height, record.width, scale)
+    th = math.ceil(round(record.height * scale) / T.STRIDE)
+    tw = math.ceil(round(record.width * scale) / T.STRIDE)
+    cls_arr, xy_arr, person_arr, joint_index = _entry_arrays(record, cfg)
+    lim = limits or CompactLimits(max(len(cls_arr), 1),
+                                  max(len(record.people), 1))
+    if len(cls_arr) > lim.max_entries or joint_index.shape[0] > lim.max_people:
+        raise ValueError(
+            f"record exceeds CompactLimits: {len(cls_arr)} entries / "
+            f"{joint_index.shape[0]} people vs {lim}")
+
+    neg_mask = np.zeros((sh, sw), np.uint8)
+    if cfg.fg_fraction is not None and not cfg.weight_targets:
+        sample_mask, min_dist, npos = _host_sampling_state(
+            cls_arr, xy_arr, cfg, scale, th, tw)
+        neg_mask[:th, :tw] = _draw_negative_mask(
+            cfg, sample_mask, min_dist, npos, th, tw, rng)
+
+    M, P = lim.max_entries, lim.max_people
+    cls_pad = np.zeros((M,), np.int32)
+    cls_pad[: len(cls_arr)] = cls_arr
+    xy_pad = np.zeros((M, 2), np.float32)
+    xy_pad[: len(cls_arr)] = xy_arr
+    person_pad = np.zeros((M,), np.int32)
+    person_pad[: len(cls_arr)] = person_arr
+    ji_pad = np.full((P, cfg.num_classes), -1, np.int32)
+    ji_pad[: joint_index.shape[0]] = joint_index
+
+    out: Dict[str, np.ndarray] = {
+        "anno_cls": cls_pad,
+        "anno_xy": xy_pad,
+        "anno_person": person_pad,
+        "anno_joint_index": ji_pad,
+        "anno_scale": np.float32(scale),
+        "anno_dims": np.array([th, tw, sh, sw], np.int32),
+        "anno_neg_mask": neg_mask,
+        "scale": np.float32(scale),
+        "input_size": np.array([ih, iw], np.int32),
+    }
+    T._add_aux_targets(out, record, cfg, rng, scale, sh, sw, th, tw, ih, iw)
+    return out
+
+
+# --------------------------------------------------------------------------
+# Device half (torch): the dense maps of a batch
+# --------------------------------------------------------------------------
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:

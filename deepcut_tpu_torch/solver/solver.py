@@ -26,8 +26,8 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from deepcut_tpu.proto import text_format
-from deepcut_tpu.proto.text_format import PbNode
+from deepcut_tpu_torch.proto import text_format
+from deepcut_tpu_torch.proto.text_format import PbNode
 from deepcut_tpu_torch.models.convert import params_from_numpy, params_to_numpy, save_caffemodel
 from deepcut_tpu_torch.models.resnet import DeeperCut, init_params
 from deepcut_tpu_torch.models.train import bn_frozen_mults
@@ -240,7 +240,7 @@ class PoseSolver:
     """DeeperCut training driver on one device (``"cuda"`` by default).
 
     batch_source: callable returning the next batch dict (host numpy, the
-    layout of `deepcut_tpu.data.pipeline.PoseDataSource`). net_params: the
+    layout of `data.pipeline.PoseDataSource`). net_params: the
     port's Caffe-named torch param dict (`models.resnet.init_params`,
     `models.convert.params_from_numpy`); a seeded random init otherwise.
     target_cfg (pose.targets.TargetConfig) rasterizes ``anno_*`` batches on

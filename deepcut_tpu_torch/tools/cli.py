@@ -6,7 +6,7 @@
 
 Counterpart of `deepcut_tpu.tools.cli train` for solvers whose net has a
 PoseData layer: the layer's pose_data_param configures the targets and the
-data source (`deepcut_tpu.data.pipeline.PoseDataSource`, uint8 canvases,
+data source (`data.pipeline.PoseDataSource`, uint8 canvases,
 compact annotations rasterized on the device unless -host_targets), the
 ResNet trunk is built natively, and `solver.solver.PoseSolver` trains it on
 one device. -mesh / -spatial (multi-GPU) and solvers without a PoseData
@@ -25,11 +25,43 @@ import os
 import sys
 from typing import List, Optional
 
+from deepcut_tpu_torch.data.pipeline import PoseDataSource, Prefetcher
+from deepcut_tpu_torch.data.window_file import parse_stats_file
+from deepcut_tpu_torch.pose.targets import TargetConfig
+from deepcut_tpu_torch.proto import text_format
+
 ENGINE_MESSAGE = ("the solver's net has no PoseData layer: generic prototxt nets train "
                   "through the graph engine, which belongs to the engine slice of the "
                   "port and is not ported yet")
 MULTI_GPU_MESSAGE = ("-mesh / -spatial (data-parallel and spatial training) belong to the "
                      "multi-GPU slice of the port, which is not ported yet")
+
+
+def _target_config_from_layer(node) -> "TargetConfig":
+    pp = node.get("pose_data_param")
+    if pp is None:
+        raise ValueError("train net has no PoseData layer")
+    kw = dict(
+        num_classes=pp.get_int("num_classes", 14),
+        scale=pp.get_float("scale", 1.0),
+        fg_threshold=pp.get_float("fg_threshold", 17.0),
+        soft_labels=pp.get_bool("soft_labels", False),
+        gauss_blob_sigma=pp.get_float("gauss_blob_sigma", 10.0),
+        multi_label=pp.get_bool("multi_label", False),
+        no_bg_class=pp.get_bool("no_bg_class", False),
+        location_refinement=pp.get_bool("location_refinement", False),
+        regress_to_other=pp.get_bool("regress_to_other", False),
+        weight_targets=pp.get_bool("weight_targets", False),
+        max_input_size=pp.get_int("max_input_size", 700),
+    )
+    if pp.has("scale_jitter_lo") and pp.has("scale_jitter_up"):
+        kw["scale_jitter_lo"] = pp.get_float("scale_jitter_lo")
+        kw["scale_jitter_up"] = pp.get_float("scale_jitter_up")
+    if pp.has("fg_fraction"):
+        kw["fg_fraction"] = pp.get_float("fg_fraction")
+    if pp.has("bg_threshold"):
+        kw["bg_threshold"] = pp.get_float("bg_threshold")
+    return TargetConfig(**kw), pp
 
 
 def pose_data(sp, *, workers: int = 4, host_targets: bool = False,
@@ -40,11 +72,6 @@ def pose_data(sp, *, workers: int = 4, host_targets: bool = False,
     of uint8 canvases with compact annotations for the device rasterizer
     (dense host maps with host_targets), seeded by the solver's
     random_seed. Close the source when done."""
-    from deepcut_tpu.data.pipeline import PoseDataSource
-    from deepcut_tpu.data.window_file import parse_stats_file
-    from deepcut_tpu.proto import text_format
-    from deepcut_tpu.tools.cli import _target_config_from_layer
-
     model_def, _stages, _level = sp.resolve_train_net()
     net_proto = model_def if not isinstance(model_def, str) else text_format.parse_file(model_def)
     data_layer = next((layer for layer in net_proto.get_list("layer")
@@ -72,7 +99,6 @@ def pose_data(sp, *, workers: int = 4, host_targets: bool = False,
 def train(args) -> int:
     import torch
 
-    from deepcut_tpu.data.pipeline import Prefetcher
     from deepcut_tpu_torch.models.resnet import deepercut_config, init_params
     from deepcut_tpu_torch.solver.solver import PoseSolver, SolverParams
 

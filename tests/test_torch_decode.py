@@ -93,11 +93,11 @@ def test_wrapper_takes_plain_path_on_cpu_tensors():
     sm, loc = _maps(rng, 3, 20, 24, 14, ties=True)
     vh = torch.tensor([20, 11, 7], dtype=torch.int32)
     vw = torch.tensor([24, 24, 5], dtype=torch.int32)
-    before = cuda_decode.launches
+    before = cuda_decode.prob_launches
     got = cuda_decode.decode_pose(_nchw(sm), _nchw(loc), vh, vw, 0.75)
     ref = decode_pose_batch(_nchw(sm), _nchw(loc), scale=0.75, valid_hw=(vh, vw))
     assert torch.equal(got, ref)
-    assert cuda_decode.launches == before == 0
+    assert cuda_decode.prob_launches == before == 0
 
 
 def test_wrapper_rejects_devices_without_kernel():
@@ -109,15 +109,84 @@ def test_wrapper_rejects_devices_without_kernel():
 
 
 def test_build_needs_nvcc_and_is_keyed_by_source(monkeypatch, tmp_path):
+    import dataclasses
+
     import torch.utils.cpp_extension as cpp
+    from deepcut_tpu_torch import native
+    from deepcut_tpu_torch.ops import conv_epilogue
 
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setattr(cpp, "CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        cuda_decode.nvcc_path()
-    lib = cuda_decode.library_path()
-    assert lib.parent == cuda_decode.BUILD_DIR
+        native.nvcc_path()
+    lib = cuda_decode.LIB.path()
+    assert lib.parent == native.BUILD_DIR
     assert lib.parent.parts[-2:] == ("build", "deepcut_tpu_torch")
-    monkeypatch.setattr(cuda_decode, "NVCC_FLAGS", cuda_decode.NVCC_FLAGS + ("-lineinfo",))
-    assert cuda_decode.library_path() != lib
+    assert lib.name.startswith("libdecode_pose-") and conv_epilogue.LIB.path() != lib
+    flagged = dataclasses.replace(cuda_decode.LIB, flags=native.NVCC_FLAGS + ("-lineinfo",))
+    assert flagged.path() != lib
+    src = tmp_path / "k.cu"
+    src.write_text("// a kernel source never built\n")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        native.build(native.NativeLib(src))
+    assert not native.NativeLib(src).path().exists()
+
+
+def test_fused_plain_matches_jax_forward_and_decode():
+    """The serving decode end to end on the CPU: the port's folded bf16
+    heads map through `decode_fused` (its plain version) against the JAX
+    package's folded bf16 forward and `decode_pose`, per image with its own
+    valid cell grid. Argmax cells, x, y and offsets equal; the confidence is
+    each framework's own f32 sigmoid of equal logits, within 4 ulp (see
+    test_torch_resnet.py's bf16 forward test)."""
+    import jax
+
+    from deepcut_tpu.models import resnet as jr
+    from deepcut_tpu_torch.models import resnet as tr
+    from deepcut_tpu_torch.models.convert import params_from_numpy
+    from test_torch_resnet import TINY_KW, tame_params
+
+    kw = dict(TINY_KW, num_joints=5)
+    jcfg, tcfg = jr.DeeperCutConfig(**kw), tr.DeeperCutConfig(**kw)
+    params = tame_params(jcfg, seed=6)
+    x = (np.random.RandomState(8).rand(3, 48, 64, 3) * 255 - 128).astype(np.float32)
+    heads = ("pose", "locref")
+    ref = jax.jit(jr.forward, static_argnums=(2,), static_argnames=("folded", "heads"))(
+        jr.cast_params(jr.fold_bn(params, jcfg)), jnp.asarray(x), jcfg, folded=True, heads=heads)
+    model = tr.DeeperCut(tr.cast_params(tr.fold_bn(params_from_numpy(params), tcfg)), tcfg)
+    with torch.inference_mode():
+        fused = model.fused_heads(torch.from_numpy(x).permute(0, 3, 1, 2), heads=heads)
+    assert fused.shape == (3, 15, 6, 8)
+    valid = [(6, 8), (4, 8), (6, 3)]
+    got = cuda_decode.decode_fused(fused, 5, [v[0] for v in valid], [v[1] for v in valid], 0.75)
+    for i, (vh, vw) in enumerate(valid):
+        want = np.asarray(jax_decode(ref["prob"][i], ref["loc_pred"][i], scale=0.75,
+                                     valid_hw=(jnp.int32(vh), jnp.int32(vw))))
+        g = got[i].numpy()
+        np.testing.assert_array_equal(g[[0, 1, 3, 4]], want[[0, 1, 3, 4]])
+        np.testing.assert_array_max_ulp(g[2], want[2], maxulp=4)
+
+
+@pytest.mark.parametrize("extra", [0, 7])
+def test_fused_plain_is_the_decode_of_the_sliced_maps(extra):
+    """`decode_fused` reads logits then locref from the unsliced map (any
+    channels after 3J are ignored): its value is `decode_pose_batch` over
+    their sigmoid and locref, ties and NaN included."""
+    rng = np.random.RandomState(9 + extra)
+    J, n, h, w = 14, 2, 11, 13
+    logits = np.round(rng.randn(n, h, w, J) * 2).astype(np.float32)   # many ties
+    logits[0, 3, 4, 2] = np.nan
+    fused = _nchw(np.concatenate([logits, rng.randn(n, h, w, 2 * J + extra).astype(np.float32)], -1))
+    fused = fused.contiguous(memory_format=torch.channels_last)
+    got = cuda_decode.decode_fused(fused, J, [11, 6], [13, 4], 1.3)
+    want = decode_pose_batch(torch.sigmoid(fused[:, :J]), fused[:, J:3 * J], scale=1.3,
+                             valid_hw=(torch.tensor([11, 6]), torch.tensor([13, 4])))
+    assert torch.equal(got[:, [0, 1, 3, 4]], want[:, [0, 1, 3, 4]])
+    assert torch.equal(torch.isnan(got[:, 2]), torch.isnan(want[:, 2]))
+    assert cuda_decode.launches == 0
+
+
+def test_fused_wrapper_rejects_devices_without_kernel():
+    with pytest.raises(ValueError, match="no kernel"):
+        cuda_decode.decode_fused(torch.empty((1, 42, 8, 8), device="meta"), 14, [8], [8])

@@ -1,7 +1,10 @@
-"""The port never imports jax: the machine with the card has none installed.
+"""The port imports neither jax nor the JAX package: the machine with the
+card has no jax installed, and the port keeps its own copies of the JAX
+package's jax-free modules.
 
-A subprocess blocks `jax` (``sys.modules['jax'] = None`` makes every import
-of it raise), imports every module of `deepcut_tpu_torch`, runs one tiny
+A subprocess blocks `jax` and `deepcut_tpu` (``sys.modules[name] = None``
+makes every import of it raise), imports every module of
+`deepcut_tpu_torch`, runs one tiny
 CPU `estimate_pose`, its demo CLI included, and trains one CPU step through
 the port's `train` verb.
 """
@@ -18,17 +21,19 @@ REPO = Path(__file__).resolve().parents[1]
 SCRIPT = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
+sys.modules["deepcut_tpu"] = None
+BLOCKED = {"jax", "deepcut_tpu"}
 import numpy as np, torch
 import deepcut_tpu_torch
 
 names = [m.name for m in pkgutil.walk_packages(deepcut_tpu_torch.__path__, "deepcut_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-assert "jax" not in {m.split(".")[0] for m, mod in sys.modules.items() if mod is not None}
+assert not BLOCKED & {m.split(".")[0] for m, mod in sys.modules.items() if mod is not None}
 
 from deepcut_tpu_torch.models.resnet import DeeperCutConfig, init_params
 from deepcut_tpu_torch.pose import estimate, demo
-from deepcut_tpu_torch.ops import cuda_decode
+from deepcut_tpu_torch.ops import conv_epilogue, cuda_decode
 
 cfg = DeeperCutConfig(depths=(1, 1, 1, 1), stage_widths=(4, 4, 8, 8), num_joints=3)
 params = init_params(torch.Generator().manual_seed(0), cfg)
@@ -36,7 +41,7 @@ est = estimate.PoseEstimator(params, cfg, device="cpu")  # folded, bf16 trunk
 img = np.random.RandomState(0).randint(0, 256, (70, 90, 3), np.uint8)
 pose = est.estimate_pose(img)
 assert pose.shape == (5, 3) and np.isfinite(pose).all(), pose
-assert cuda_decode.launches == 0
+assert cuda_decode.launches == cuda_decode.prob_launches == conv_epilogue.launches == 0
 estimate._MODEL_CACHE[("", "", "cpu")] = est
 from PIL import Image
 Image.fromarray(img[:, :, ::-1]).save(sys.argv[1])
@@ -45,7 +50,7 @@ assert demo.main([sys.argv[1], "--device", "cpu", "--out_name", sys.argv[2]]) ==
 from deepcut_tpu_torch.tools import cli
 assert cli.main(["train", "-solver", sys.argv[3], "-weights", sys.argv[4], "-resnet", "50",
                  "-device", "cpu", "-data_workers", "0"]) == 0
-assert "jax" not in {m.split(".")[0] for m, mod in sys.modules.items() if mod is not None}
+assert not BLOCKED & {m.split(".")[0] for m, mod in sys.modules.items() if mod is not None}
 print("modules", len(names))
 """
 
