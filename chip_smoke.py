@@ -4,23 +4,33 @@
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --serving-times  # phase 1 and the serving times only
 
-Drives the port's two paths at the full ResNet-152 width through their
-entry points, in phases; any failure raises and the exit code is non-zero:
+Drives the port's three paths (bf16 serving, int8 serving, training) at the
+full ResNet-152 width through their entry points, in phases; any failure
+raises and the exit code is non-zero:
 
 1. the card: nvidia-smi's name and power limit, torch / CUDA versions;
 2. build the CUDA kernels from csrc/ with nvcc, one process per source, all
-   started together: the decode (csrc/decode_pose.cu) and the serving
-   conv's epilogue (csrc/conv_epilogue.cu);
+   started together: the decode (csrc/decode_pose.cu), the serving conv's
+   epilogue (csrc/conv_epilogue.cu) and the int8 conv's pieces
+   (csrc/int8_conv.cu: im2col, epilogue, quantize);
 3. each kernel against its plain PyTorch version on the card: the decode's
    fused entry and its probability-map entry (argmax and pose bit for bit,
    on ties, all-equal, bf16-valued and NaN maps), the epilogue bit for bit
-   (random, residual, strided residual); and cuDNN's TF32 convolution exact
-   on bf16-valued operands (allowed against not allowed, 1e-5 relative);
+   (random, residual, strided residual), the int8 im2col, epilogue (each
+   mode of the int8 forward) and quantization (+-127, .5 ties) bit for bit,
+   and the route im2col + torch._int_mm equal to an exact f64 convolution's
+   int32 accumulator; and cuDNN's TF32 convolution exact on bf16-valued
+   operands (allowed against not allowed, 1e-5 relative);
 4. the serving slice (random weights from a seeded generator, tamed):
    estimate_pose, estimate_pose_batch, bf16 against f32 scoremaps, an HD
    frame on the tiled path;
 5. examples/pose/serve.py, unchanged, serving the port's estimator: three
    concurrent HTTP requests of mixed sizes, one of them HD;
+Q. int8 serving: quantize_int8 on a 480x640 frame, estimate_pose and
+   estimate_pose_batch, int8 against bf16 scoremaps, an HD frame on the
+   tiled path, an int8_deconv=True estimator, forward_int8's int8_residual
+   within the int8 envelope; then serve.py's --int8 on a fresh estimator
+   (it calibrates on the first request) with the requests of phase 5;
 T1. training through `python -m deepcut_tpu_torch.tools.cli train`'s entry
    point: copies of examples/pose/pose_{train,solver}.prototxt over a
    synthetic window file of 480x640 frames, finetuning ResNet-152 from the
@@ -35,16 +45,18 @@ T3. the tiny model learns the coloured-disc task of
    the CLI's source), scored through the port's PoseEstimator (the decode
    kernel) by the eval hook; an estimator built from T1's .caffemodel
    snapshot gives a finite pose;
-6. times on the card, each beside the card's name and limit: the serving
-   forward and estimate_pose_batch at batch 1 and 4 (CUDA-event wall time,
-   torch.profiler device busy time, idle share, kernels per call), each
-   kernel at the main path's shapes beside its plain version, its bound
-   and a library call where one computes the same function, and the
-   full-width PoseSolver.step.
+6. times on the card, each beside the card's name and limit: the bf16 and
+   int8 serving forwards and estimate_pose_batch at batch 1 and 4
+   (CUDA-event wall time, torch.profiler device busy time, idle share,
+   kernels per call), each kernel at the main path's shapes beside its
+   plain version, its bound and a library call where one computes the
+   same function, torch._int_mm per GEMM shape of the int8 forward against
+   its int8 bound, and the full-width PoseSolver.step.
 
 The kernels' launch counters are zeroed before phase 4 and read after
-phase 5 (the serving path), and again before T1 and after T3 (the training
-path). --serving-times imports only what the package had before the conv
+phase 5 (the serving path), zeroed again before Q and read after its
+server (the int8 serving path), and again before T1 and after T3 (the
+training path). --serving-times imports only what the package had before the conv
 epilogue kernel, so the same timing runs over an older checkout of the
 package (run from that checkout) for a comparison inside one call.
 It never imports jax (the card's machine has none). The line before the last
@@ -75,7 +87,7 @@ import torch.nn.functional as F
 from deepcut_tpu_torch.models.resnet import DeeperCut, deepercut_config, init_params
 from deepcut_tpu_torch.ops import cuda_decode
 from deepcut_tpu_torch.pose.decode import decode_pose_batch
-from deepcut_tpu_torch.pose.estimate import PoseEstimator, canvas_size
+from deepcut_tpu_torch.pose.estimate import HEADS, PoseEstimator, canvas_size
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -97,6 +109,39 @@ EPILOGUE_CASES = [((1, 64, 176, 176), False, True, (0, 0)),
                   ((4, 42, 89, 89), False, False, (0, 0)),
                   ((4, 42, 88, 88), True, False, (1, 1)),
                   ((3, 64, 17, 23), True, True, (3, 2))]
+# int8_im2col and the int8 conv route at the int8 forward's shapes (704
+# canvas): (name, x, k, stride, pad, dilation, input dilation, Cout).
+IM2COL_CASES = [("res2 3x3", (4, 64, 176, 176), 3, 1, 1, 1, 1, 64),
+                ("res2 3x3 batch 1", (1, 64, 176, 176), 3, 1, 1, 1, 1, 64),
+                ("res3a 1x1 stride 2", (4, 256, 176, 176), 1, 2, 0, 1, 1, 128),
+                ("res5 3x3 dilated", (4, 512, 44, 44), 3, 1, 2, 2, 1, 512),
+                ("heads int8 deconv", (4, 2048, 44, 44), 3, 1, 2, 1, 2, 42),
+                ("res4 1x1 (the input as A)", (4, 1024, 44, 44), 1, 1, 0, 1, 1, 256),
+                ("9 rows, padded to 17", (1, 64, 3, 3), 1, 1, 0, 1, 1, 64),
+                ("4-byte path", (2, 12, 13, 11), 3, 2, 1, 1, 1, 8),
+                ("byte path", (2, 42, 13, 11), 3, 1, 1, 1, 1, 8)]
+# int8_epilogue in each mode of the int8 forward: (name, acc shape, acc row
+# stride, residual (None, "f32" holding bf16 values, "i8"), its crop,
+# keyword arguments).
+I8_EPILOGUE_CASES = [
+    ("branch2a: ReLU, requantized", (4, 64, 176, 176), 64, None, (0, 0),
+     dict(relu=True, f32_out=False, requant_s=0.0517)),
+    ("block end: bf16 residual, ReLU, f32 + requantized", (4, 256, 176, 176), 256, "f32", (0, 0),
+     dict(relu=True, requant_s=0.0517)),
+    ("int8 stream: int8 residual", (4, 512, 88, 88), 512, "i8", (0, 0),
+     dict(residual_scale=0.0371, relu=True, f32_out=False, requant_s=0.0517)),
+    ("branch1 at res5, batch 1", (1, 2048, 44, 44), 2048, None, (0, 0), dict()),
+    ("heads: skip conv + cropped deconv, f32", (4, 42, 88, 88), 48, "f32", (1, 1),
+     dict(bf16=False)),
+    ("int8 deconv out", (4, 42, 89, 89), 48, None, (0, 0), dict()),
+    ("f32 config block end", (2, 64, 17, 23), 64, "f32", (3, 2), dict(bf16=False, relu=True)),
+    ("int8 residual, scalar path", (3, 42, 5, 7), 48, "i8", (0, 0),
+     dict(residual_scale=0.0371, relu=True, requant_s=0.0517)),
+]
+# quantize_i8: (shape, scale) at the stem's output (batch 4 and 1), the skip
+# tap, and an odd element count (the scalar path).
+QUANTIZE_CASES = [((4, 64, 176, 176), 0.25), ((1, 64, 176, 176), 0.0371),
+                  ((4, 512, 88, 88), 0.125), ((3, 5, 7, 11), 0.25)]
 # TF32 allowed against not allowed on bf16-valued operands: (name, x, w,
 # pad, dilation, transposed) at res4, res5 (dilated) and the heads' deconv.
 TF32_CASES = [("res4 1x1", (1, 1024, 44, 44), (256, 1024, 1, 1), 0, 1, False),
@@ -129,6 +174,20 @@ BF16_PROB_TOL = 0.1
 BIAS_TWICE_BF16_GAP = 0.02369
 BIAS_TWICE_KERNELS_PER_CALL = {1: 688, 4: 734}
 HBM_BYTES_PER_S = 3.35e12  # the H100 SXM's device memory rate (NVIDIA's data sheet)
+INT8_OPS_PER_S = 1979e12   # its dense int8 tensor-core rate (the same sheet)
+# int8 against bf16 scoremaps of the same tamed weights: the heads x30 put
+# many cells near the sigmoid's steep middle or in saturation, where int8
+# noise can move a probability far; held as tests/test_estimate.py:228-230
+# holds the JAX package's: under 5% of cells moved by more than 0.25.
+INT8_FLIP, INT8_MAX_FLIPS = 0.25, 0.05
+# torch._int_mm at the int8 forward's GEMM shapes (704 canvas, batch 4):
+# (name, M = N*oh*ow, K = kh*kw*Cin, N = Cout rounded up to 8).
+INT_MM_SHAPES = [("res2 branch2b 3x3", 123904, 576, 64), ("res2 branch2c 1x1", 123904, 64, 256),
+                 ("res3 branch2b 3x3", 30976, 1152, 128), ("res4 branch2b 3x3", 7744, 2304, 256),
+                 ("res4 branch2c 1x1", 7744, 256, 1024),
+                 ("res5 branch2b 3x3 dilated", 7744, 4608, 512),
+                 ("res5 branch2c 1x1", 7744, 512, 2048), ("heads skip 1x1", 30976, 512, 48),
+                 ("heads int8 deconv", 31684, 18432, 48)]
 # The full-width training loss with bf16 convolutions against f32 (TF32
 # off), same params and batch: the loss averages ~10^4 cross-entropy terms
 # over the bf16 logits, whose errors largely cancel in the mean. Read on the
@@ -169,10 +228,10 @@ def phase_device() -> str:
 # -- 2. build ----------------------------------------------------------------
 def phase_build() -> None:
     from deepcut_tpu_torch import native
-    from deepcut_tpu_torch.ops import conv_epilogue
+    from deepcut_tpu_torch.ops import conv_epilogue, int8_conv
 
     t0 = time.perf_counter()
-    libs = native.build(cuda_decode.LIB, conv_epilogue.LIB)
+    libs = native.build(cuda_decode.LIB, conv_epilogue.LIB, int8_conv.LIB)
     log(f"build: {', '.join(str(lib.relative_to(ROOT)) for lib in libs)} in "
         f"{time.perf_counter() - t0:.2f} s (nvcc, one process per source, in parallel)")
     for lib in libs:
@@ -357,9 +416,110 @@ def check_tf32_exact() -> None:
             raise AssertionError(f"TF32 conv not exact on bf16 values at {name}: {rel}")
 
 
+def _i8(gen, shape, memory_format=torch.channels_last) -> torch.Tensor:
+    """Random int8 values in [-127, 127] on the card."""
+    return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8
+                         ).contiguous(memory_format=memory_format)
+
+
+def check_int8_im2col() -> float:
+    """int8_im2col against its plain version bit for bit, and the route
+    (im2col rows or the input itself, packed weight, torch._int_mm) equal
+    to the plain f64 convolution's int32 accumulator, exactly."""
+    from deepcut_tpu_torch.ops import int8_conv as ic
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    for name, xs, k, stride, pad, dil, lhs, cout in IM2COL_CASES:
+        x = _i8(gen, xs)
+        kw = dict(stride=stride, pad=pad, dilation=dil, lhs_dilation=lhs)
+        got = ic.int8_im2col(x, k, **kw)
+        ref = ic.int8_im2col_plain(x, k, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"int8_im2col differs from plain at {name} {xs}")
+        if lhs > 1:  # the int8 deconv: (Cin, Cout, kh, kw), packed flipped
+            w = _i8(gen, (xs[1], cout, k, k), torch.contiguous_format)
+            packed, want = ic.pack_deconv_weight(w), ic.deconv_i8_plain(x, w, stride=lhs)
+        else:
+            w = _i8(gen, (cout, xs[1], k, k), torch.contiguous_format)
+            packed, want = ic.pack_conv_weight(w), ic.conv_i8_plain(x, w, **kw)
+        acc = ic.conv_i8(x, packed, cout, k, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(acc, want):
+            raise AssertionError(f"im2col + torch._int_mm differs from the exact accumulator at "
+                                 f"{name} {xs} (max |diff| {int((acc - want).abs().max())})")
+        log(f"int8_im2col == plain and the route == the exact int32 accumulator: {name} "
+            f"{tuple(xs)} k={k} stride={stride} pad={pad} dilation={dil} lhs={lhs} -> "
+            f"A {tuple(got.shape)}, acc {tuple(acc.shape)} max |acc| {int(acc.abs().max())}")
+    return 0.0
+
+
+def _i8_epilogue_case(gen, shape, ldc, residual, crop=(0, 0)):
+    """(acc view with row stride ldc, scale, bias, residual) on the card."""
+    n, c, h, w = shape
+    rows = torch.randint(-2**24, 2**24, (n * h * w, ldc), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    acc = rows.view(n, h, w, ldc).permute(0, 3, 1, 2)[:, :c]
+    scale = (torch.rand(c, generator=gen, device="cuda") * 1e-3 + 1e-5) * 0.0123
+    bias = torch.randn(c, generator=gen, device="cuda") * 3
+    res = None
+    if residual == "i8":
+        res = _i8(gen, (n, c, h, w))
+    elif residual == "f32":
+        big = torch.randn((n, c, h + crop[0], w + crop[1]), generator=gen, device="cuda") * 30
+        res = big.to(torch.bfloat16).float().contiguous(memory_format=torch.channels_last)
+        res = res[:, :, :h, :w]
+    return acc, scale, bias, res
+
+
+def check_int8_epilogue() -> float:
+    """int8_epilogue against its plain version bit for bit in each mode of
+    the int8 forward, at its shapes (704 canvas)."""
+    from deepcut_tpu_torch.ops import int8_conv as ic
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    for name, shape, ldc, residual, crop, kw in I8_EPILOGUE_CASES:
+        acc, scale, bias, res = _i8_epilogue_case(gen, shape, ldc, residual, crop)
+        got = ic.int8_epilogue(acc, scale, bias, res, **kw)
+        ref = ic.int8_epilogue_plain(acc, scale, bias, res, **kw)
+        torch.cuda.synchronize()
+        for g, r, what in zip(got, ref, ("f32", "int8")):
+            if (g is None) != (r is None) or (g is not None and not _same(g, r)):
+                raise AssertionError(f"int8_epilogue {what} output differs from plain at {name}")
+        log(f"int8_epilogue == plain: {name} {shape} (acc row stride {ldc}): "
+            + ", ".join(f"{what} bit-equal" for g, what in zip(got, ("f32", "int8")) if g is not None))
+    return 0.0
+
+
+def check_quantize_i8() -> float:
+    """quantize_i8 against its plain version bit for bit, with +-127
+    saturation and exact .5 ties planted (a power-of-two scale makes
+    x * (1/s) exact)."""
+    from deepcut_tpu_torch.ops import int8_conv as ic
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    for shape, s in QUANTIZE_CASES:
+        x = (torch.randn(shape, generator=gen, device="cuda") * 40 * s
+             ).contiguous(memory_format=torch.channels_last)
+        flat = x.permute(0, 2, 3, 1).reshape(-1)
+        k = min(flat.numel() // 4, 4096)
+        flat[:k] = (torch.randint(-200, 200, (k,), generator=gen, device="cuda") + 0.5) * s
+        flat[k:2 * k] = torch.randn(k, generator=gen, device="cuda") * 1000 * s
+        got = ic.quantize_i8(x, s)
+        ref = ic.quantize_i8_plain(x, s)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ref):
+            raise AssertionError(f"quantize_i8 differs from plain at {shape} s={s}")
+        sat = float((got.abs() == 127).float().mean())
+        log(f"quantize_i8 == plain: {shape} s={s}, bit-equal ({sat:.3f} saturated, "
+            f"{k} planted .5 ties)")
+    return 0.0
+
+
 def phase_kernels_vs_plain() -> dict:
     errs = {"decode_pose_prob": check_decode_prob(), "decode_pose": check_decode_fused(),
-            "conv_epilogue": check_conv_epilogue()}
+            "conv_epilogue": check_conv_epilogue(), "int8_im2col": check_int8_im2col(),
+            "int8_epilogue": check_int8_epilogue(), "quantize_i8": check_quantize_i8()}
     check_tf32_exact()
     return errs
 
@@ -453,6 +613,92 @@ def phase_slice(rng):
     return est
 
 
+# -- Q. the int8 slice ---------------------------------------------------------
+def _flips(a: np.ndarray, b: np.ndarray) -> float:
+    """The fraction of scoremap cells whose probability moved by > 0.25."""
+    return float(np.mean(np.abs(a - b) > INT8_FLIP))
+
+
+def phase_int8(est16, rng):
+    """int8 serving at full width from the tamed weights: quantize_int8 on
+    a 480x640 frame, then every estimator path against the bf16 one."""
+    from deepcut_tpu_torch.models.quantize import forward_int8, prepare_int8
+    from deepcut_tpu_torch.ops import int8_conv
+
+    cfg = deepercut_config(152)
+    params = tame_params(cfg)
+    est = PoseEstimator(params, cfg, device="cuda")
+    f480 = frame(rng, 480, 640)
+    t0 = time.perf_counter()
+    est.quantize_int8(f480)
+    torch.cuda.synchronize()
+    log(f"quantize_int8 on a 480x640 frame (512x640 bucket, f32 calibration, TF32 off): "
+        f"{time.perf_counter() - t0:.2f} s, {len(est.model.act_scales)} activation scales, "
+        f"{len(est.model.convs)} int8 trunk convs")
+    if not est.is_int8:
+        raise AssertionError("quantize_int8 did not switch the estimator")
+
+    pose = est.estimate_pose(f480)
+    if pose is None or pose.shape != (5, J) or not np.isfinite(pose).all():
+        raise AssertionError(f"int8 estimate_pose: bad pose {pose}")
+    if int8_conv.epilogue_launches == 0 or int8_conv.im2col_launches == 0:
+        raise AssertionError("int8 estimate_pose did not launch the int8 kernels")
+    log(f"int8 estimate_pose 480x640: finite (5, 14), conf min {pose[2].min():.4f} max "
+        f"{pose[2].max():.4f}; launches so far: im2col {int8_conv.im2col_launches}, epilogue "
+        f"{int8_conv.epilogue_launches}, quantize {int8_conv.quantize_launches}")
+    batch = est.estimate_pose_batch([f480] * 4)
+    for i in range(4):
+        agreement(batch[i], pose, f"int8 estimate_pose_batch[{i}] vs estimate_pose")
+
+    sm8, _ = est.scoremaps(f480)
+    sm16, _ = est16.scoremaps(f480)
+    flips = _flips(sm8, sm16)
+    same = (sm8.reshape(-1, J).argmax(0) == sm16.reshape(-1, J).argmax(0)).mean()
+    log(f"int8 vs bf16 scoremaps: |dprob| > {INT8_FLIP} on {flips:.4f} of cells (held below "
+        f"{INT8_MAX_FLIPS}), max |dprob| {np.abs(sm8 - sm16).max():.4g}, argmax agrees on "
+        f"{same:.3f} of joints, pose conf int8 {pose[2].mean():.4f} vs bf16 "
+        f"{est16.estimate_pose(f480)[2].mean():.4f} (mean)")
+    if not np.isfinite(sm8).all() or flips >= INT8_MAX_FLIPS:
+        raise AssertionError(f"int8 scoremaps off the bf16 ones: {flips}")
+
+    tiled = []
+    inner = est._scoremaps_tiled
+    est._scoremaps_tiled = lambda *a: tiled.append(a) or inner(*a)
+    pose_hd = est.estimate_pose(frame(rng, 720, 1280))
+    del est._scoremaps_tiled
+    if not tiled or pose_hd is None or not np.isfinite(pose_hd).all():
+        raise AssertionError("int8: the HD frame did not take the tiled path or gave no pose")
+    log("int8 HD 720x1280: tiled path, finite (5, 14)")
+
+    est_dq = PoseEstimator(params, cfg, device="cuda")
+    est_dq.quantize_int8(f480, int8_deconv=True)
+    pose_dq = est_dq.estimate_pose(f480)
+    sm_dq, _ = est_dq.scoremaps(f480)
+    flips_dq = _flips(sm_dq, sm16)
+    log(f"int8_deconv=True: finite pose {pose_dq is not None and np.isfinite(pose_dq).all()}, "
+        f"|dprob| > {INT8_FLIP} against bf16 on {flips_dq:.4f} of cells")
+    if pose_dq is None or not np.isfinite(pose_dq).all() or flips_dq >= INT8_MAX_FLIPS:
+        raise AssertionError("int8_deconv=True estimator off the bf16 one")
+    del est_dq
+
+    # the int8-resident stream against the plain int8 forward, both against
+    # bf16, as tests/test_quantize.py:59-61 holds it
+    canvas = est16._canvas(f480, 1.0, 512, 640).permute(0, 3, 1, 2)
+    fp = {n: {k: v.detach().float() for k, v in e.items()}
+          for n, e in est16.model.param_dict().items()}
+    with torch.inference_mode():
+        qp, sc = prepare_int8(fp, cfg, canvas)
+        ref = est16.model(canvas, heads=HEADS)["prob"]
+        e = {res: float((forward_int8(qp, sc, canvas, cfg, int8_residual=res,
+                                      heads=HEADS)["prob"] - ref).abs().max())
+             for res in (False, True)}
+    log(f"forward_int8 max |dprob| against bf16: plain {e[False]:.4g}, int8_residual=True "
+        f"{e[True]:.4g} (held below max(2.5 x plain, 0.15))")
+    if not e[True] < max(2.5 * e[False], 0.15):
+        raise AssertionError("int8_residual=True outside the int8 envelope")
+    return est
+
+
 # -- 5. the server -----------------------------------------------------------
 def _post_png(port: int, img_bgr: np.ndarray) -> dict:
     from PIL import Image
@@ -472,11 +718,13 @@ def _post_png(port: int, img_bgr: np.ndarray) -> dict:
         conn.close()
 
 
-def phase_server(est, rng):
+def phase_server(est, rng, int8: bool = False):
+    """int8: the service's --int8, which calibrates `est` on the first
+    request's frame."""
     spec = importlib.util.spec_from_file_location("pose_serve", ROOT / "examples/pose/serve.py")
     serve = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(serve)
-    app = serve.PoseApp(estimator=est, batch_window_ms=4)
+    app = serve.PoseApp(estimator=est, int8=int8, batch_window_ms=4)
     httpd = serve.serve(app, port=0, background=True)
     try:
         frames = [frame(rng, 480, 640), frame(rng, 300, 400), frame(rng, 720, 1280)]
@@ -485,16 +733,19 @@ def phase_server(est, rng):
     finally:
         httpd.shutdown()
         httpd.server_close()
+    if int8 and not est.is_int8:
+        raise AssertionError("serve.py --int8 did not quantize the estimator")
+    what = "int8 " if int8 else ""
     for f, ans in zip(frames, answers):
         if not ans.get("ok") or len(ans["joints"]) != J:
-            raise AssertionError(f"server answer for {f.shape}: {ans}")
+            raise AssertionError(f"{what}server answer for {f.shape}: {ans}")
         direct = est.estimate_pose(f)
         served = np.asarray(ans["pose"], np.float32)
         served[:2] = [[j["x"] for j in ans["joints"]], [j["y"] for j in ans["joints"]]]
         want = direct.copy()
         want[:2] = np.round(direct[:2].astype(np.float64), 2)
-        agreement(served, want, f"HTTP {f.shape[0]}x{f.shape[1]} vs estimate_pose")
-    log(f"server: {len(frames)} concurrent requests answered ok, "
+        agreement(served, want, f"{what}HTTP {f.shape[0]}x{f.shape[1]} vs estimate_pose")
+    log(f"{what}server: {len(frames)} concurrent requests answered ok, "
         f"{app.batcher.batches_run} batches for {app.batcher.images_run} images")
 
 
@@ -852,7 +1103,7 @@ def _device_profile(fn, steps: int, top: int = 0):
             [(e.key, e.self_device_time_total / 1000.0 / steps, e.count / steps) for e in ranked])
 
 
-def serving_times(est, rng, card: str) -> None:
+def serving_times(est, rng, card: str, label: str = "bf16") -> None:
     """The serving forward and estimate_pose_batch on 688x688 frames at
     batch 1 and 4: CUDA-event wall time, device busy time and kernels per
     call from torch.profiler, the idle share, and where the device time
@@ -871,11 +1122,11 @@ def serving_times(est, rng, card: str) -> None:
                           lambda: est.estimate_pose_batch(frames))):
             ms = _events_ms(fn, iters=20)
             busy, ops, ranked = _device_profile(fn, steps=10, top=6)
-            log(f"time [{card}]: {what}, bf16, pose+locref, batch {bs}: {ms:.3f} ms/call, "
+            log(f"time [{card}]: {what}, {label}, pose+locref, batch {bs}: {ms:.3f} ms/call, "
                 f"{bs * 1000 / ms:.2f} img/s; device busy {busy:.3f} ms (idle share "
                 f"{1 - busy / ms:.3f}), {ops:.0f} device kernels per call (with the bias rounded twice, the "
-                f"forward: {BIAS_TWICE_KERNELS_PER_CALL[bs]})")
-            log(f"profile [{card}]: {what}, batch {bs}, top kernels (ms per call, launches): "
+                f"bf16 forward: {BIAS_TWICE_KERNELS_PER_CALL[bs]})")
+            log(f"profile [{card}]: {what}, {label}, batch {bs}, top kernels (ms per call, launches): "
                 + "; ".join(f"{name[:70]} {t:.3f} ms x{n:.0f}" for name, t, n in ranked))
 
 
@@ -942,9 +1193,65 @@ def kernel_times(card: str) -> dict:
     return out
 
 
-def phase_times(est, rng, card: str) -> dict:
+def _timed(card: str, name: str, fn, plain, bound_ms: float, iters: int = 200) -> dict:
+    """A kernel's wrapper per call (CUDA events), its device time
+    (profiler) and its plain version's time, logged beside its bound."""
+    ms = _events_ms(fn, iters)
+    plain_ms = _events_ms(plain, max(iters // 10, 5))
+    _, _, [(kname, dev_ms, _)] = _device_profile(fn, steps=50, top=1)
+    log(f"time [{card}]: {name}: {ms * 1000:.2f} us per call, device time {dev_ms * 1000:.2f} us "
+        f"({kname[:40]}), plain PyTorch {plain_ms * 1000:.2f} us, bound {bound_ms * 1000:.2f} us")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=None)
+
+
+def int8_kernel_times(card: str) -> dict:
+    """The three int8 kernels at the int8 forward's shapes (704 canvas,
+    batch 4), and torch._int_mm per GEMM shape against its int8 bound.
+    No single PyTorch call computes what a kernel does: F.unfold refuses
+    int8 on the card, and the epilogue and quantization (a reciprocal in
+    f32, +-127) have no library form."""
+    from deepcut_tpu_torch.ops import int8_conv as ic
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    out = {}
+    x = _i8(gen, (4, 64, 176, 176))           # res2's 3x3 input
+    rows, k = 4 * 176 * 176, 9 * 64
+    out["int8_im2col"] = _timed(
+        card, "int8_im2col at res2 3x3 (4,64,176,176) -> (123904, 576)",
+        lambda: ic.int8_im2col(x, 3, pad=1), lambda: ic.int8_im2col_plain(x, 3, pad=1),
+        _bound_ms(x.numel() + rows * k))
+    shape = (4, 512, 88, 88)                  # a res3 block end
+    acc, scale, bias, res = _i8_epilogue_case(gen, shape, 512, "f32")
+    kw = dict(relu=True, requant_s=0.0517)
+    n = acc.numel()
+    out["int8_epilogue"] = _timed(
+        card, f"int8_epilogue at {shape}: bf16 residual, ReLU, f32 out + requantized",
+        lambda: ic.int8_epilogue(acc, scale, bias, res, **kw),
+        lambda: ic.int8_epilogue_plain(acc, scale, bias, res, **kw),
+        _bound_ms(n * 4 + n * 4 + n * 4 + n + shape[1] * 8))
+    y = torch.randn((4, 64, 176, 176), generator=gen, device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    out["quantize_i8"] = _timed(
+        card, "quantize_i8 at the stem's output (4,64,176,176)",
+        lambda: ic.quantize_i8(y, 0.0371), lambda: ic.quantize_i8_plain(y, 0.0371),
+        _bound_ms(y.numel() * 5))
+    for name, m, kk, nn in INT_MM_SHAPES:
+        a = torch.randint(-127, 128, (m, kk), generator=gen, device="cuda", dtype=torch.int8)
+        w = torch.randint(-127, 128, (nn, kk), generator=gen, device="cuda", dtype=torch.int8)
+        ms = _events_ms(lambda: torch._int_mm(a, w.t()), 50)
+        ops_ms = 2.0 * m * kk * nn / INT8_OPS_PER_S * 1e3
+        bytes_ms = _bound_ms(m * kk + kk * nn + m * nn * 4)
+        log(f"time [{card}]: torch._int_mm {name} ({m} x {kk}) x ({kk} x {nn}): {ms * 1000:.2f} us, "
+            f"bound {max(ops_ms, bytes_ms) * 1000:.2f} us by {'operations' if ops_ms > bytes_ms else 'bytes'}"
+            f" ({2.0 * m * kk * nn / ms / 1e9:.1f} TOPS)")
+        del a, w
+    return out
+
+
+def phase_times(est, est8, rng, card: str) -> dict:
     serving_times(est, rng, card)
-    return kernel_times(card)
+    serving_times(est8, rng, card, label="int8")
+    return {**kernel_times(card), **int8_kernel_times(card)}
 
 
 def phase_train_times(card: str):
@@ -992,6 +1299,12 @@ def phase_train_times(card: str):
 KERNELS = {  # name -> (source, what it replaces)
     "conv_epilogue": ("deepcut_tpu_torch/csrc/conv_epilogue.cu",
                       "deepcut_tpu/ops/conv.py:93 (no TPU kernel: XLA fuses this epilogue)"),
+    "int8_im2col": ("deepcut_tpu_torch/csrc/int8_conv.cu",
+                    "deepcut_tpu/models/quantize.py:67 (no TPU kernel: XLA's int8 conv)"),
+    "int8_epilogue": ("deepcut_tpu_torch/csrc/int8_conv.cu",
+                      "deepcut_tpu/models/quantize.py:127 (no TPU kernel: XLA fuses it)"),
+    "quantize_i8": ("deepcut_tpu_torch/csrc/int8_conv.cu",
+                    "deepcut_tpu/models/quantize.py:119 (no TPU kernel: XLA fuses it)"),
     "decode_pose": ("deepcut_tpu_torch/csrc/decode_pose.cu", "deepcut_tpu/ops/pallas_decode.py:63"),
     "decode_pose_prob": ("deepcut_tpu_torch/csrc/decode_pose.cu",
                          "deepcut_tpu/ops/pallas_decode.py:63"),
@@ -999,16 +1312,20 @@ KERNELS = {  # name -> (source, what it replaces)
 
 
 def _counts() -> dict:
-    from deepcut_tpu_torch.ops import conv_epilogue
+    from deepcut_tpu_torch.ops import conv_epilogue, int8_conv
 
     return {"conv_epilogue": conv_epilogue.launches, "decode_pose": cuda_decode.launches,
-            "decode_pose_prob": cuda_decode.prob_launches}
+            "decode_pose_prob": cuda_decode.prob_launches,
+            "int8_im2col": int8_conv.im2col_launches,
+            "int8_epilogue": int8_conv.epilogue_launches,
+            "quantize_i8": int8_conv.quantize_launches}
 
 
 def _zero_counts() -> None:
-    from deepcut_tpu_torch.ops import conv_epilogue
+    from deepcut_tpu_torch.ops import conv_epilogue, int8_conv
 
     conv_epilogue.launches = cuda_decode.launches = cuda_decode.prob_launches = 0
+    int8_conv.reset_counts()
 
 
 def main() -> int:
@@ -1024,21 +1341,28 @@ def main() -> int:
     est = phase_slice(rng)
     phase_server(est, rng)
     serving = _counts()                          # and ends here
+    _zero_counts()                               # the int8 serving path starts here
+    est8 = phase_int8(est, rng)
+    phase_server(PoseEstimator(tame_params(deepercut_config(152)), device="cuda"), rng, int8=True)
+    int8 = _counts()                             # and ends here
     _zero_counts()                               # the training path starts here
     phase_train(rng)
     training = _counts()                         # and ends here
-    log(f"kernel launches: serving path {serving}, training path {training}")
-    for path, counts, need in (("serving", serving, KERNELS),
+    log(f"kernel launches: serving path {serving}, int8 serving path {int8}, "
+        f"training path {training}")
+    for path, counts, need in (("serving", serving, ("conv_epilogue", "decode_pose",
+                                                     "decode_pose_prob")),
+                               ("int8 serving", int8, KERNELS),
                                ("training", training, ("conv_epilogue", "decode_pose"))):
         idle = [k for k in need if counts[k] == 0]
         if idle:
             raise AssertionError(f"the {path} path never launched {idle}")
-    times = phase_times(est, rng, card)
-    del est
+    times = phase_times(est, est8, rng, card)
+    del est, est8
     phase_train_times(card)
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": serving[name] + training[name], "max_abs_err": errs[name],
+         "launches": serving[name] + int8[name] + training[name], "max_abs_err": errs[name],
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",
          "library_ms": times[name]["library_ms"]}

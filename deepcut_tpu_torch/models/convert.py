@@ -12,7 +12,7 @@ a zero-dilated input. Caffe layer names are kept as keys.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +35,25 @@ def params_from_numpy(params: Mapping[str, Mapping[str, np.ndarray]]) -> Params:
             conv[k] = torch.tensor(a)  # a copy: the source may be read-only
         out[name] = conv
     return out
+
+
+def qparams_from_numpy(qparams: Mapping[str, Mapping[str, np.ndarray]],
+                       act_scales: Mapping[str, np.ndarray]
+                       ) -> Tuple[Params, Dict[str, torch.Tensor]]:
+    """The JAX package's int8 quantization (``prepare_int8``'s
+    ``(qparams, act_scales)``) -> the port's: int8 ``w_q`` HWIO -> OIHW, the
+    int8 deconv's ``(kh, kw, Cin, Cout)`` -> ``(Cin, Cout, kh, kw)`` (no
+    flip, as `params_from_numpy`); float weights as `params_from_numpy`;
+    ``w_scale``, ``b`` and the activation scales f32, on the CPU."""
+    out: Params = {}
+    for name, entry in qparams.items():
+        floats = params_from_numpy({name: {k: v for k, v in entry.items() if k != "w_q"}})[name]
+        if "w_q" in entry:
+            a = np.asarray(entry["w_q"], np.int8)
+            a = a.transpose(2, 3, 0, 1) if name.startswith(DECONV_PREFIX) else a.transpose(3, 2, 0, 1)
+            floats["w_q"] = torch.tensor(np.ascontiguousarray(a))
+        out[name] = floats
+    return out, {k: torch.tensor(np.float32(v)) for k, v in act_scales.items()}
 
 
 def params_to_numpy(params: Mapping[str, Mapping[str, torch.Tensor]]) -> Dict[str, Dict[str, np.ndarray]]:

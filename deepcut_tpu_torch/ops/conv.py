@@ -123,18 +123,33 @@ def exact_conv(x: torch.Tensor, w: torch.Tensor, *, stride=1, pad=0, dilation=1,
     widened here; the serving module stores its weights widened once."""
     if x.dtype != torch.float32:
         raise TypeError(f"exact_conv: x must be f32 holding bf16 values, got {x.dtype}")
-    w = w.float()
+    return _f32_conv(x, w.float(), stride, pad, dilation, groups, transposed, allow_tf32=True)
+
+
+def _f32_conv(x, w, stride, pad, dilation, groups, transposed, *, allow_tf32: bool):
+    """f32 convolution with TF32 allowed or not for this call alone (cuDNN's
+    aten ops take the flag per call); on the CPU `F.conv2d`."""
     stride, pad, dilation = _pair(stride), _pair(pad), _pair(dilation)
     if x.device.type == "cuda":
         cudnn = torch.backends.cudnn
         if transposed:
             return torch.ops.aten.cudnn_convolution_transpose(
                 x, w, pad, (0, 0), stride, dilation, groups, cudnn.benchmark,
-                cudnn.deterministic, True)
+                cudnn.deterministic, allow_tf32)
         return torch.ops.aten.cudnn_convolution(
-            x, w, pad, stride, dilation, groups, cudnn.benchmark, cudnn.deterministic, True)
+            x, w, pad, stride, dilation, groups, cudnn.benchmark, cudnn.deterministic,
+            allow_tf32)
     fn = F.conv_transpose2d if transposed else F.conv2d
     return fn(x, w, None, stride=stride, padding=pad, dilation=dilation, groups=groups)
+
+
+def conv2d_f32(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *,
+               stride=1, pad=0, dilation=1) -> torch.Tensor:
+    """f32 convolution + f32 bias in full f32: TF32 is off for this call
+    whatever the caller's global flag (int8 calibration, whose scales must
+    not depend on it)."""
+    y = _f32_conv(x.float(), w.float(), stride, pad, dilation, 1, False, allow_tf32=False)
+    return y if b is None else y + b.reshape(1, -1, 1, 1)
 
 
 def conv2d_rounded(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *,

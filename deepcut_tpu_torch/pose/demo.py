@@ -3,15 +3,17 @@
     python -m deepcut_tpu_torch.pose.demo IMAGE_OR_DIR \
         [--model-def D.prototxt] [--model-bin W.caffemodel] \
         [--scales 0.8,1.0,1.2] [--out_name OUT] [--visualize/--no-visualize] \
-        [--folder_image_suffix .png] [--average-scales] [--device cuda]
+        [--folder_image_suffix .png] [--average-scales] [--device cuda] [--int8]
 
 Saves `<image>_pose.npz` (key 'pose', the 5x14 array) and a circle-overlay
-visualisation, like the reference CLI and `deepcut_tpu.pose.demo`.
+visualisation, like the reference CLI and `deepcut_tpu.pose.demo`. With
+--int8 a private estimator is quantized, calibrated on the first image.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import glob
 import os
 import sys
@@ -41,7 +43,8 @@ def npcircle(image: np.ndarray, cx: float, cy: float, radius: int, color,
 def predict_pose_from(image_name: str, model_def: str = "", model_bin: str = "",
                       out_name: Optional[str] = None, scales=(1.0,),
                       visualize: bool = True, folder_image_suffix: str = ".png",
-                      average_scales: bool = False, device: str = "cuda") -> int:
+                      average_scales: bool = False, device: str = "cuda",
+                      int8: bool = False) -> int:
     from PIL import Image
     from deepcut_tpu_torch.pose.estimate import get_estimator
 
@@ -54,6 +57,11 @@ def predict_pose_from(image_name: str, model_def: str = "", model_bin: str = "",
     if process_folder and out_name and not os.path.exists(out_name):
         os.mkdir(out_name)
     est = get_estimator(model_def, model_bin, device)
+    if int8:
+        # a PRIVATE estimator: quantizing the module-global cached one would
+        # switch every later caller of get_estimator on this model to int8.
+        # quantize_int8 replaces the copy's model and leaves the shared one be.
+        est = copy.copy(est)
     for image_path in images:
         if out_name is None:
             out = image_path + "_pose.npz"
@@ -64,6 +72,8 @@ def predict_pose_from(image_name: str, model_def: str = "", model_bin: str = "",
         with Image.open(image_path) as im:
             rgb = np.asarray(im.convert("RGB"))
         image = rgb[:, :, ::-1]  # BGR (pose_demo.py:121)
+        if int8 and not est.is_int8:
+            est.quantize_int8(image, scale=scales[0])  # calibrates on the first image
         pose = (est.estimate_pose_avg(image, scales) if average_scales
                 else est.estimate_pose(image, list(scales)))
         if pose is None:  # no scale cleared the min-confidence bar
@@ -92,12 +102,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--average-scales", action="store_true",
                    help="average scoremaps across scales instead of best-of")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.add_argument("--int8", action="store_true",
+                   help="int8 serving (calibrates on the first image)")
     args = p.parse_args(argv)
     scales = [float(v) for v in args.scales.split(",")]
     return predict_pose_from(args.image_name, args.model_def, args.model_bin,
                              args.out_name, scales, args.visualize,
                              args.folder_image_suffix, args.average_scales,
-                             args.device)
+                             args.device, args.int8)
 
 
 if __name__ == "__main__":

@@ -14,7 +14,8 @@ the batched paths, so only the 5 x J pose crosses back to the host. Canvas sizes
 masked to each image's true grid, as in the JAX package; in place of its
 per-bucket jit programs this estimator keeps a per-size cache of
 device-resident bilinear matrices. The tiling plan is the JAX package's
-stride-aligned one (see `_tile_plan`).
+stride-aligned one (see `_tile_plan`). `PoseEstimator.quantize_int8`
+switches every path to the int8 model (`models.quantize`).
 """
 
 from __future__ import annotations
@@ -144,6 +145,52 @@ class PoseEstimator:
         self.bucket_step = bucket_step
         self.max_size = max_size
         self._matrices: Dict[Tuple[int, int], torch.Tensor] = {}
+        self._int8 = False
+
+    # -- int8 serving --------------------------------------------------------
+    @property
+    def is_int8(self) -> bool:
+        """True once `quantize_int8` has switched serving to the int8 model."""
+        return self._int8
+
+    def quantize_int8(self, calibration_image: np.ndarray, scale: float = 1.0, *,
+                      int8_deconv: bool = False, percentile: float = 100.0) -> None:
+        """Switch serving to the int8 model (`models.quantize`): per-channel
+        symmetric int8 weights, activation scales calibrated on the given
+        image's preprocessed canvas (one f32 forward, TF32 off), and every
+        path (single, batched, tiled, averaged, scoremaps) on
+        `models.quantize.DeeperCutInt8`. int8_deconv=True quantizes the
+        transposed-conv heads too; percentile < 100 (e.g. 99.9) clips
+        calibration outliers. As in the JAX package, the calibration canvas
+        is the f32 one at the image's bucket size and the weights are the
+        estimator's own (bf16-cast when folded), widened to f32.
+
+        Call once with a representative image; a second call does nothing
+        (the float model is gone after the first)."""
+        from deepcut_tpu_torch.models.quantize import prepare_int8
+
+        if self._int8:
+            return
+        h, w = calibration_image.shape[:2]
+        bh = _bucket(canvas_size(h, scale), self.bucket_step)
+        bw = _bucket(canvas_size(w, scale), self.bucket_step)
+        canvas = self._canvas(calibration_image, scale, bh, bw)
+        params = {name: {k: v.detach().float() for k, v in entry.items()}
+                  for name, entry in self.model.param_dict().items()}
+        with torch.inference_mode():
+            qparams, act_scales = prepare_int8(params, self.cfg, canvas.permute(0, 3, 1, 2),
+                                               quantize_deconv=int8_deconv,
+                                               percentile=percentile)
+        self.serve_int8(qparams, act_scales, int8_deconv=int8_deconv)
+
+    def serve_int8(self, qparams, act_scales, *, int8_deconv: bool = False) -> None:
+        """Serve a given quantization (`models.quantize.prepare_int8`'s, or
+        the JAX package's through `models.convert.qparams_from_numpy`)."""
+        from deepcut_tpu_torch.models.quantize import DeeperCutInt8
+
+        self.model = DeeperCutInt8(qparams, act_scales, self.cfg,
+                                   int8_deconv=int8_deconv).to(self.device)
+        self._int8 = True
 
     # -- device pieces -----------------------------------------------------
     def _matrix(self, in_size: int, out_size: int) -> torch.Tensor:

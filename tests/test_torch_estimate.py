@@ -142,3 +142,58 @@ def test_estimate_pose_avg_matches_jax():
     img = _frame(3, 96, 128)
     np.testing.assert_allclose(port.estimate_pose_avg(img, [0.75, 1.0]),
                                jax_est.estimate_pose_avg(img, [0.75, 1.0]), **RESIZE_POSE_TOL)
+
+
+# -- int8 serving (tests/test_estimate.py:209-233) ----------------------------
+KW8 = dict(depths=(1, 1, 1, 1), stage_widths=(8, 8, 16, 16), num_joints=3)
+
+
+def _int8_pair():
+    """Both packages' folded bf16 estimators on the same tamed params."""
+    jcfg, tcfg = jr.DeeperCutConfig(**KW8), tr.DeeperCutConfig(**KW8)
+    params = tame_params(jcfg, seed=5)
+    for name in ("res5c_up_pose", "res3d_pose"):  # structured, unsaturated maps
+        params[name]["w"] *= np.float32(10.0)
+    jax_est = je.PoseEstimator(jax.tree_util.tree_map(jnp.asarray, params), jcfg)
+    port = te.PoseEstimator(params_from_numpy(params), tcfg, device="cpu")
+    return jax_est, port
+
+
+def test_quantize_int8_matches_jax_estimator():
+    """Calibration on the same frame gives the JAX estimator's scales (f32
+    convs summed in another order: rtol 1e-5); on a shared quantization
+    (the JAX package's, carried across) the int8 maps are bit-equal and the
+    poses of every path agree as the float paths do."""
+    from deepcut_tpu_torch.models.convert import qparams_from_numpy
+
+    jax_est, port = _int8_pair()
+    img = _frame(11, 100, 120)
+    pose_fp = port.estimate_pose(img)
+    sm_fp, _ = port.scoremaps(img)
+    jax_est.quantize_int8(img)
+    port.quantize_int8(img)
+    assert port.is_int8 and jax_est.is_int8
+    ref_scales = {k: float(v) for k, v in jax_est.params["s"].items()}
+    assert set(port.model.act_scales) == set(ref_scales)
+    for k, v in ref_scales.items():
+        assert port.model.act_scales[k] == pytest.approx(v, rel=1e-5), k
+    model = port.model
+    port.quantize_int8(_frame(12, 60, 44))  # a second call does nothing
+    assert port.model is model
+
+    port.serve_int8(*qparams_from_numpy(jax.tree_util.tree_map(np.asarray, jax_est.params["q"]),
+                                        jax.tree_util.tree_map(np.asarray, jax_est.params["s"])))
+    sm_ref, loc_ref = jax_est.scoremaps(img)
+    sm, loc = port.scoremaps(img)
+    np.testing.assert_array_equal(loc, loc_ref)
+    np.testing.assert_array_max_ulp(sm, sm_ref, maxulp=4)
+    np.testing.assert_allclose(port.estimate_pose(img), jax_est.estimate_pose(img), **POSE_TOL)
+    frames = [img, _frame(13, 100, 120)]
+    np.testing.assert_allclose(port.estimate_pose_batch(frames),
+                               jax_est.estimate_pose_batch(frames), **POSE_TOL)
+    # close to the float path, as tests/test_estimate.py holds the JAX one
+    pose_q = port.estimate_pose(img)
+    assert (np.abs(pose_q[:2] - pose_fp[:2]) / (np.abs(pose_fp[:2]) + 1.0) < 0.10).all()
+    assert np.mean(np.abs(sm - sm_fp) > 0.25) < 0.05
+    batch = port.estimate_pose_batch([img, img])
+    np.testing.assert_allclose(batch[0], batch[1], rtol=1e-5)

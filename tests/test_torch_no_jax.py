@@ -5,8 +5,9 @@ package's jax-free modules.
 A subprocess blocks `jax` and `deepcut_tpu` (``sys.modules[name] = None``
 makes every import of it raise), imports every module of
 `deepcut_tpu_torch`, runs one tiny
-CPU `estimate_pose`, its demo CLI included, and trains one CPU step through
-the port's `train` verb.
+CPU `estimate_pose` in bf16 and in int8 (calibrated on the frame), the demo
+CLI with and without --int8, and trains one CPU step through the port's
+`train` verb.
 """
 
 import os
@@ -33,7 +34,7 @@ assert not BLOCKED & {m.split(".")[0] for m, mod in sys.modules.items() if mod i
 
 from deepcut_tpu_torch.models.resnet import DeeperCutConfig, init_params
 from deepcut_tpu_torch.pose import estimate, demo
-from deepcut_tpu_torch.ops import conv_epilogue, cuda_decode
+from deepcut_tpu_torch.ops import conv_epilogue, cuda_decode, int8_conv
 
 cfg = DeeperCutConfig(depths=(1, 1, 1, 1), stage_widths=(4, 4, 8, 8), num_joints=3)
 params = init_params(torch.Generator().manual_seed(0), cfg)
@@ -41,11 +42,18 @@ est = estimate.PoseEstimator(params, cfg, device="cpu")  # folded, bf16 trunk
 img = np.random.RandomState(0).randint(0, 256, (70, 90, 3), np.uint8)
 pose = est.estimate_pose(img)
 assert pose.shape == (5, 3) and np.isfinite(pose).all(), pose
+est8 = estimate.PoseEstimator(params, cfg, device="cpu")
+est8.quantize_int8(img)
+pose8 = est8.estimate_pose(img)
+assert est8.is_int8 and pose8.shape == (5, 3) and np.isfinite(pose8).all(), pose8
 assert cuda_decode.launches == cuda_decode.prob_launches == conv_epilogue.launches == 0
+assert int8_conv.im2col_launches == int8_conv.epilogue_launches == int8_conv.quantize_launches == 0
 estimate._MODEL_CACHE[("", "", "cpu")] = est
 from PIL import Image
 Image.fromarray(img[:, :, ::-1]).save(sys.argv[1])
 assert demo.main([sys.argv[1], "--device", "cpu", "--out_name", sys.argv[2]]) == 0
+assert demo.main([sys.argv[1], "--device", "cpu", "--int8", "--out_name", sys.argv[2] + ".int8.npz"]) == 0
+assert not est.is_int8  # the demo quantized a private estimator
 
 from deepcut_tpu_torch.tools import cli
 assert cli.main(["train", "-solver", sys.argv[3], "-weights", sys.argv[4], "-resnet", "50",
@@ -71,3 +79,4 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     pose = np.load(tmp_path / "p.npz")["pose"]
     assert pose.shape == (5, 3)
     assert (tmp_path / "p.npz_vis.png").is_file()
+    assert np.load(tmp_path / "p.npz.int8.npz")["pose"].shape == (5, 3)
