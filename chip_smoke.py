@@ -4,9 +4,9 @@
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --serving-times  # phase 1 and the serving times only
 
-Drives the port's three paths (bf16 serving, int8 serving, training) at the
-full ResNet-152 width through their entry points, in phases; any failure
-raises and the exit code is non-zero:
+Drives the port's four paths (bf16 serving, int8 serving, training, and the
+Caffe graph engine's serving) at full width through their entry points, in
+phases; any failure raises and the exit code is non-zero:
 
 1. the card: nvidia-smi's name and power limit, torch / CUDA versions;
 2. build the CUDA kernels from csrc/ with nvcc, one process per source, all
@@ -45,18 +45,35 @@ T3. the tiny model learns the coloured-disc task of
    the CLI's source), scored through the port's PoseEstimator (the decode
    kernel) by the eval hook; an estimator built from T1's .caffemodel
    snapshot gives a finite pose;
+G. the graph engine (`deepcut_tpu_torch.core.graph.Net` and its front ends):
+   G1 CaffeNet (examples/imagenet/caffenet_deploy.prototxt, unchanged: batch
+   10 of 227x227, 96/256/384/384/256 channels, two grouped convs, two LRNs,
+   fc6/fc7 of 4096, 8 classes) from a seeded .caffemodel written by
+   `compat.Net.save`: `Classifier.predict` over two frames with 10-crop
+   oversampling (f32, TF32 off), the same crops through the bf16
+   `make_forward` and through `compat.Net.forward_all`, then the CLI's `time`
+   and `test`; G2 the DeeperCut ResNet-152 written as a deploy prototxt with
+   the port's `net_spec` (1x3x688x688), phase 4's tamed weights from a
+   .caffemodel, the serving chain (fold_bn, prune, [fuse_siblings],
+   cast_weights, make_forward) against the native `DeeperCut` bf16 forward
+   and `forward()` in f32 against the native f32 forward; G3
+   `Net.quantize_int8` on G2's graph in the int8 envelope;
 6. times on the card, each beside the card's name and limit: the bf16 and
    int8 serving forwards and estimate_pose_batch at batch 1 and 4
    (CUDA-event wall time, torch.profiler device busy time, idle share,
    kernels per call), each kernel at the main path's shapes beside its
    plain version, its bound and a library call where one computes the
-   same function, torch._int_mm per GEMM shape of the int8 forward against
-   its int8 bound, and the full-width PoseSolver.step.
+   same function (quantize_i8 with the L2 flushed before each call),
+   torch._int_mm per GEMM shape of the int8 forward against its int8 bound,
+   the graph engine's CaffeNet `Classifier.predict` (20 crops) and
+   `make_forward` at batch 10, the ResNet-152 graph's `make_forward` at
+   batch 1 and 4 beside the native bf16 forward, and the full-width
+   PoseSolver.step.
 
 The kernels' launch counters are zeroed before phase 4 and read after
 phase 5 (the serving path), zeroed again before Q and read after its
-server (the int8 serving path), and again before T1 and after T3 (the
-training path). --serving-times imports only what the package had before the conv
+server (the int8 serving path), again before T1 and after T3 (the
+training path), and again before G and after it (the graph engine's path). --serving-times imports only what the package had before the conv
 epilogue kernel, so the same timing runs over an older checkout of the
 package (run from that checkout) for a comparison inside one call.
 It never imports jax (the card's machine has none). The line before the last
@@ -84,6 +101,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deepcut_tpu_torch.constants import MEAN_BGR as MEAN_BGR_T
 from deepcut_tpu_torch.models.resnet import DeeperCut, deepercut_config, init_params
 from deepcut_tpu_torch.ops import cuda_decode
 from deepcut_tpu_torch.pose.decode import decode_pose_batch
@@ -110,7 +128,8 @@ EPILOGUE_CASES = [((1, 64, 176, 176), False, True, (0, 0)),
                   ((4, 42, 88, 88), True, False, (1, 1)),
                   ((3, 64, 17, 23), True, True, (3, 2))]
 # int8_im2col and the int8 conv route at the int8 forward's shapes (704
-# canvas): (name, x, k, stride, pad, dilation, input dilation, Cout).
+# canvas) and at rectangular kernels (the graph engine's int8 convs):
+# (name, x, k or (kh, kw), stride, pad, dilation, input dilation, Cout).
 IM2COL_CASES = [("res2 3x3", (4, 64, 176, 176), 3, 1, 1, 1, 1, 64),
                 ("res2 3x3 batch 1", (1, 64, 176, 176), 3, 1, 1, 1, 1, 64),
                 ("res3a 1x1 stride 2", (4, 256, 176, 176), 1, 2, 0, 1, 1, 128),
@@ -119,7 +138,9 @@ IM2COL_CASES = [("res2 3x3", (4, 64, 176, 176), 3, 1, 1, 1, 1, 64),
                 ("res4 1x1 (the input as A)", (4, 1024, 44, 44), 1, 1, 0, 1, 1, 256),
                 ("9 rows, padded to 17", (1, 64, 3, 3), 1, 1, 0, 1, 1, 64),
                 ("4-byte path", (2, 12, 13, 11), 3, 2, 1, 1, 1, 8),
-                ("byte path", (2, 42, 13, 11), 3, 1, 1, 1, 1, 8)]
+                ("byte path", (2, 42, 13, 11), 3, 1, 1, 1, 1, 8),
+                ("1x3", (2, 64, 43, 43), (1, 3), 1, 1, 1, 1, 64),
+                ("3x1 strided and dilated", (2, 16, 30, 22), (3, 1), 2, 2, 2, 1, 24)]
 # int8_epilogue in each mode of the int8 forward: (name, acc shape, acc row
 # stride, residual (None, "f32" holding bf16 values, "i8"), its crop,
 # keyword arguments).
@@ -438,10 +459,10 @@ def check_int8_im2col() -> float:
         if not torch.equal(got, ref):
             raise AssertionError(f"int8_im2col differs from plain at {name} {xs}")
         if lhs > 1:  # the int8 deconv: (Cin, Cout, kh, kw), packed flipped
-            w = _i8(gen, (xs[1], cout, k, k), torch.contiguous_format)
+            w = _i8(gen, (xs[1], cout, *ic.kernel_hw(k)), torch.contiguous_format)
             packed, want = ic.pack_deconv_weight(w), ic.deconv_i8_plain(x, w, stride=lhs)
         else:
-            w = _i8(gen, (cout, xs[1], k, k), torch.contiguous_format)
+            w = _i8(gen, (cout, xs[1], *ic.kernel_hw(k)), torch.contiguous_format)
             packed, want = ic.pack_conv_weight(w), ic.conv_i8_plain(x, w, **kw)
         acc = ic.conv_i8(x, packed, cout, k, **kw)
         torch.cuda.synchronize()
@@ -514,6 +535,92 @@ def check_quantize_i8() -> float:
         log(f"quantize_i8 == plain: {shape} s={s}, bit-equal ({sat:.3f} saturated, "
             f"{k} planted .5 ties)")
     return 0.0
+
+
+def _view(geometry, fill):
+    """A tensor view of a recorded (dtype, shape, strides, storage offset),
+    its storage filled by ``fill(numel, dtype)``."""
+    dtype, shape, strides, offset = geometry
+    numel = offset + 1 + sum((n - 1) * st for n, st in zip(shape, strides))
+    return fill(numel, getattr(torch, dtype.split(".")[-1])).as_strided(shape, strides, offset)
+
+
+def replay_path_geometries(epilogue: dict, recorded: dict, device: str = "cuda") -> dict:
+    """Every distinct launch geometry (shape, strides, storage offset and
+    mode) that the main paths gave conv_epilogue, int8_im2col,
+    int8_epilogue and quantize_i8 (recorded by their wrappers: `epilogue`
+    is conv_epilogue's record, `recorded` int8_conv's), replayed on
+    fresh random inputs against the plain version on the card, bit for bit.
+    -> {kernel: number of geometries}. On the CPU (a rehearsal) both sides
+    take the plain version."""
+    from deepcut_tpu_torch.ops import conv_epilogue, int8_conv as ic
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+
+    def randn(scale, dtype=torch.float32):
+        return lambda n, _: (torch.randn(n, generator=gen, device=device) * scale).to(dtype).float()
+
+    def rand_i8(n, _):
+        return torch.randint(-127, 128, (n,), generator=gen, device=device, dtype=torch.int8)
+
+    def rand_i32(n, _):
+        return torch.randint(-2**24, 2**24, (n,), generator=gen, device=device, dtype=torch.int32)
+
+    def residual(g):
+        if g is None:
+            return None
+        return _view(g, rand_i8 if g[0] == "torch.int8" else randn(30, torch.bfloat16))
+
+    done = {}
+    for (yg, has_bias, rg, relu) in epilogue:
+        y = _view(yg, randn(4))
+        bias = torch.randn(yg[1][1], generator=gen, device=device) if has_bias else None
+        res = residual(rg)
+        got = conv_epilogue.conv_epilogue(y.clone(), bias, res, relu)
+        if not torch.equal(got, conv_epilogue.conv_epilogue_plain(y, bias, res, relu)):
+            raise AssertionError(f"conv_epilogue differs from plain at the path's {yg} "
+                                 f"bias={has_bias} residual={rg} relu={relu}")
+    done["conv_epilogue"] = len(epilogue)
+    for (xg, k, stride, pad, dil, lhs, min_rows, width) in recorded.get("im2col_launches", {}):
+        x = _view(xg, rand_i8)
+        kw = dict(stride=stride, pad=pad, dilation=dil, lhs_dilation=lhs, min_rows=min_rows,
+                  width=width)
+        if not torch.equal(ic.int8_im2col(x, k, **kw), ic.int8_im2col_plain(x, k, **kw)):
+            raise AssertionError(f"int8_im2col differs from plain at the path's {xg} k={k} {kw}")
+    for (ag, rg, relu, bf16, f32_out, _), (res_scale, requant_s) in recorded.get(
+            "epilogue_launches", {}).items():
+        acc = _view(ag, rand_i32)
+        c = ag[1][1]
+        scale = (torch.rand(c, generator=gen, device=device) * 1e-3 + 1e-5) * 0.0123
+        bias = torch.randn(c, generator=gen, device=device) * 3
+        res = residual(rg)
+        kw = dict(residual_scale=res_scale, relu=relu, bf16=bf16, f32_out=f32_out,
+                  requant_s=requant_s)
+        got = ic.int8_epilogue(acc, scale, bias, res, **kw)
+        ref = ic.int8_epilogue_plain(acc, scale, bias, res, **kw)
+        if not all((g is None and r is None) or (g is not None and r is not None and _same(g, r))
+                   for g, r in zip(got, ref)):
+            raise AssertionError(f"int8_epilogue differs from plain at the path's {ag} "
+                                 f"residual={rg} {kw}")
+    def planted(s):  # near-.5 ties and saturation, as check_quantize_i8 plants them
+        def fill(n, _):
+            v = torch.randn(n, generator=gen, device=device) * 40 * s
+            k = min(n // 4, 4096)
+            v[:k] = (torch.randint(-200, 200, (k,), generator=gen, device=device) + 0.5) * s
+            v[k:2 * k] = torch.randn(k, generator=gen, device=device) * 1000 * s
+            return v
+        return fill
+
+    for xg, (s,) in recorded.get("quantize_launches", {}).items():
+        x = _view(xg, planted(s))
+        if not torch.equal(ic.quantize_i8(x, s), ic.quantize_i8_plain(x, s)):
+            raise AssertionError(f"quantize_i8 differs from plain at the path's {xg} s={s}")
+    for name, key in (("int8_im2col", "im2col_launches"), ("int8_epilogue", "epilogue_launches"),
+                      ("quantize_i8", "quantize_launches")):
+        done[name] = len(recorded.get(key, {}))
+    log(f"the main paths' launch geometries replayed against the plain versions on fresh "
+        f"random inputs, bit-equal: {done}")
+    return done
 
 
 def phase_kernels_vs_plain() -> dict:
@@ -1072,18 +1179,371 @@ def phase_train(rng):
         phase_train_learns(root, snapshot_model)
 
 
+# -- G. the graph engine -------------------------------------------------------
+CAFFENET = ROOT / "examples/imagenet/caffenet_deploy.prototxt"
+IMAGENET_MEAN_BGR = np.array([104.0, 117.0, 123.0], np.float32)
+# Classifier.predict in f32 (TF32 off) against the bf16 serving forward of the
+# same crops and weights (prob averaged over the 10 crops): 8 bf16 layers
+# over 227x227 crops, softmax over 8 classes; held within 0.02.
+CAFFENET_BF16_PROB_TOL = 0.02
+# The graph's bf16 heads' maps against the native DeeperCut bf16 forward of the
+# same weights (both folded on the device: the card's rsqrt differs from the
+# host's in the last bit, and a folded weight's bf16 rounding with it).
+# Without fuse_siblings the graph runs the native trunk's convolutions on the
+# same values (the fold formula gives the same f32 values for its bias-free
+# convs), so its trunk is bit-equal; its heads run one deconv and one skip
+# conv per head where the native forward runs one of each for all heads
+# (42 channels), which cuDNN may sum in another order: a term moves by one
+# bf16 step of its own magnitude and the rounded sum by one more, so each
+# element is held within 2 steps at the larger magnitude of itself and its
+# two terms (an element whose terms cancel would read many steps of its own
+# magnitude), and within one step at the map's largest magnitude. Read on
+# the card (NVIDIA H100 80GB HBM3, 700.00 W): fc_pose bit-equal, loc_pred
+# 0.0019% of elements apart, by 2 such steps, 0.125 at the map's scale.
+# fuse_siblings merges each stage's first branch1 and branch2a into one conv
+# of another width, whose f32 sums run in another order too; a bf16 rounding
+# that moves there propagates through up to 36 later blocks, so the fused
+# graph is held in steps at each map's largest magnitude: read on the card,
+# 1 (fc_pose) and 2 (loc_pred), 5% of elements apart. Held to 4.
+FUSED_MAX_STEPS = 4
+# The graph's f32 forward() against the native f32 forward (TF32 off) of the
+# same weights: the same f32 convolutions, but the graph applies BatchNorm
+# and Scale as two layers where the native forward folds them into one
+# affine, a few f32 roundings per conv over 155 convs. Read on the card
+# (NVIDIA H100 80GB HBM3, 700.00 W): 2.1e-6 of the maps' largest magnitude;
+# held within 1e-4.
+GRAPH_F32_RTOL = 1e-4
+
+
+def tame_caffenet(net, gen) -> None:
+    """Seeded fan-in-scaled Gaussians over a graph net's conv and
+    InnerProduct weights (He's scale for the ReLU layers, fc8 at a tenth so
+    the softmax does not saturate) and small biases, in place."""
+    for name, entry in net.params.items():
+        for k, v in entry.items():
+            if k == "w":
+                fan_in = v[0].numel()
+                std = (2.0 / fan_in) ** 0.5 * (0.1 if name == "fc8" else 1.0)
+                entry[k] = (torch.randn(v.shape, generator=gen) * std).to(v.device)
+            else:
+                entry[k] = (torch.randn(v.shape, generator=gen) * 0.1).to(v.device)
+
+
+def _bf16_step(v: float) -> float:
+    """One bf16 step (unit in the last place) at magnitude v."""
+    return 2.0 ** (math.floor(math.log2(max(v, 2.0 ** -126))) - 7)
+
+
+def _steps_bf16(got: torch.Tensor, want: torch.Tensor, *terms: torch.Tensor) -> float:
+    """Largest |got - want| in bf16 steps at each element's magnitude, or at
+    the larger magnitude of the `terms` the element is the rounded sum of
+    (a sum that cancels carries its terms' roundings at their scale)."""
+    got, want = got.double(), want.double()
+    mag = torch.maximum(got.abs(), want.abs())
+    for t in terms:
+        mag = torch.maximum(mag, t.double().abs())
+    mag = mag.clamp_min(2.0 ** -126)
+    return float(((got - want).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
+
+
+def phase_graph_caffenet(root: Path, rng, device: str = "cuda") -> dict:
+    """G1: CaffeNet at full width (examples/imagenet/caffenet_deploy.prototxt,
+    batch 10 of 227x227, 8 classes) from a seeded .caffemodel: the
+    Classifier's 10-crop predictions, against the bf16 serving forward and
+    through compat.Net.forward_all, then `cli time` and `cli test`."""
+    from deepcut_tpu_torch import compat
+    from deepcut_tpu_torch.classifier import Classifier
+    from deepcut_tpu_torch.core.graph import Net
+
+    weights = root / "caffenet_tamed.caffemodel"
+    writer = compat.Net(str(CAFFENET), compat.TEST, device=device)
+    tame_caffenet(writer._net, torch.Generator().manual_seed(SEED))
+    writer.save(str(weights))
+    del writer
+    kw = dict(image_dims=(256, 256), raw_scale=255, channel_swap=(2, 1, 0),
+              mean=IMAGENET_MEAN_BGR)
+    cls = Classifier(str(CAFFENET), str(weights), device=device, **kw)
+    frames = [rng.rand(480, 640, 3).astype(np.float32), rng.rand(300, 400, 3).astype(np.float32)]
+    pred = cls.predict(frames)
+    if pred.shape != (2, 8) or not np.isfinite(pred).all() or np.abs(pred.sum(1) - 1).max() > 1e-4:
+        raise AssertionError(f"Classifier.predict: {pred}")
+    in_ = cls.inputs[0]
+    crops = dio_oversample(cls, frames)
+    data = np.stack([cls.transformer.preprocess(in_, c) for c in crops])
+    again = compat.Net(str(CAFFENET), str(weights), compat.TEST, device=device)
+    fa = again.forward_all(data=data)["prob"].reshape(2, 10, -1).mean(1)
+    d_fa = float(np.abs(fa - pred).max())
+    serve = Net(str(CAFFENET), weights=str(weights), device=device)
+    serve.fold_bn()
+    serve.prune(["prob"])
+    serve.fuse_siblings()
+    serve.cast_weights()
+    fwd = serve.make_forward(["prob"])
+    x = torch.from_numpy(data).to(device)
+    p16 = torch.cat([fwd(serve.params, {"data": x[i:i + 10]})["prob"] for i in (0, 10)])
+    p16 = p16.cpu().numpy().reshape(2, 10, -1).mean(1)
+    d16 = float(np.abs(p16 - pred).max())
+    log(f"G1 CaffeNet Classifier.predict, 2 frames x 10 crops (f32, TF32 off): (2, 8), rows sum "
+        f"to 1, top classes {pred.argmax(1).tolist()} (max p {pred.max():.4f}); compat.Net."
+        f"forward_all max |dp| {d_fa:.3g}; bf16 make_forward max |dp| {d16:.4g} (held to "
+        f"{CAFFENET_BF16_PROB_TOL}), top classes {p16.argmax(1).tolist()}")
+    if d_fa > 1e-6 or d16 > CAFFENET_BF16_PROB_TOL:
+        raise AssertionError("CaffeNet: forward_all or the bf16 forward off the Classifier's")
+    out, _ = run_verb(["time", "-model", str(CAFFENET), "-iterations", "20", "-device", device])
+    if "Average forward (make_forward)" not in out:
+        raise AssertionError(f"cli time: {out}")
+    out, _ = run_verb(["test", "-model", str(CAFFENET), "-weights", str(weights),
+                       "-iterations", "2", "-device", device])
+    if "prob = 0.125000" not in out:   # the mean of an 8-way softmax
+        raise AssertionError(f"cli test: {out}")
+    return {"classifier": cls, "frames": frames, "serve": serve, "fwd": fwd, "x10": x[:10]}
+
+
+def dio_oversample(cls, frames):
+    """The Classifier's own crops: resized to image_dims, 10 per frame."""
+    from deepcut_tpu_torch import io as dio
+
+    return dio.oversample([dio.resize_image(im, cls.image_dims) for im in frames],
+                          tuple(cls.crop_dims))
+
+
+def run_verb(argv):
+    """`cli.main(argv)` with its output shown and returned."""
+    from deepcut_tpu_torch.tools import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli {argv} returned {rc}")
+    return buf.getvalue(), rc
+
+
+def _serving_graph(proto: Path, weights: Path, device: str, heads, *, fuse: bool):
+    """The serving chain over the prototxt and .caffemodel: fold_bn ->
+    prune(heads) -> [fuse_siblings] -> cast_weights; -> (net, counts)."""
+    from deepcut_tpu_torch.core.graph import Net
+
+    net = Net(str(proto), weights=str(weights), device=device)
+    counts = (len(net._plan), net.fold_bn(), net.prune(heads), net.fuse_siblings() if fuse else 0)
+    net.cast_weights()
+    return net, counts
+
+
+HEAD_TERMS = {"fc_pose": ("res3d_pose", "res5c_up_pose_crop"),
+              "loc_pred": ("res3d_locref", "res5c_up_locref_crop")}
+
+
+def _against_native(what: str, got: dict, want: dict, *, element_steps=None, map_steps=None) -> None:
+    """The graph's heads' maps against the native forward's: in bf16 steps
+    per element (at the larger magnitude of the element and of its two
+    terms, the skip conv's and the cropped deconv's outputs), or at each
+    map's largest magnitude."""
+    for k in ("fc_pose", "loc_pred"):
+        d = float((got[k] - want[k]).abs().max())
+        top = float(want[k].abs().max())
+        per_element = _steps_bf16(got[k], want[k], *(got[t] for t in HEAD_TERMS[k]))
+        per_map = d / _bf16_step(top)
+        held = ", ".join(f"{what_} held to {n}" for what_, n in (
+            ("per element", element_steps), ("at the map's largest magnitude", map_steps))
+            if n is not None)
+        log(f"G2 {what} {k} against native DeeperCut bf16: "
+            f"{float((got[k] != want[k]).float().mean()):.6f} of elements differ; max |d| {d:.4g}, "
+            f"{per_element:.3g} bf16 steps per element, {per_map:.3g} at the map's largest "
+            f"magnitude {top:.4g} ({held})")
+        if (element_steps is not None and not per_element <= element_steps) or (
+                map_steps is not None and not per_map <= map_steps):
+            raise AssertionError(f"G2: {what} {k} outside the tolerance")
+
+
+def phase_graph_serving(g: dict, device: str = "cuda") -> dict:
+    """G2: the serving chain without and with fuse_siblings against the
+    native DeeperCut bf16 forward of the same weights on one frame."""
+    from deepcut_tpu_torch.models.resnet import fold_bn
+
+    cfg, x, heads = g["cfg"], g["x"], g["heads"]
+    # folded on the device, as the graph folds: the card's rsqrt may differ
+    # from the host's in the last bit, and a folded weight's bf16 rounding
+    # with it
+    on_device = {n: {k: v.to(device) for k, v in e.items()} for n, e in g["params"].items()}
+    native = DeeperCut(fold_bn(on_device, cfg), cfg).to(device, memory_format=g["cl"])
+    with torch.inference_mode():
+        want = native(x.contiguous(memory_format=g["cl"]), heads=("pose", "locref"))
+    del native
+    plain, counts = _serving_graph(g["proto"], g["weights"], device, heads, fuse=False)
+    got = plain.make_forward(heads + [t for pair in HEAD_TERMS.values() for t in pair])(
+        plain.params, {"data": x})
+    log(f"G2 ResNet-{g['depth']} prototxt ({g['proto'].name}, {counts[0]} layers, "
+        f"{g['canvas']}x{g['canvas']}): fold_bn folded {counts[1]}, prune removed {counts[2]}")
+    _against_native("graph bf16 (no fuse_siblings)", got, want, element_steps=2, map_steps=1)
+    del plain, got
+    net, counts = _serving_graph(g["proto"], g["weights"], device, heads, fuse=True)
+    fwd = net.make_forward(heads)
+    got = net.make_forward(heads + [t for pair in HEAD_TERMS.values() for t in pair])(
+        net.params, {"data": x})
+    log(f"G2 fuse_siblings fused {counts[3]} groups; {len(net._plan)} layers serve")
+    _against_native("graph bf16", got, want, map_steps=FUSED_MAX_STEPS)
+    return {"net": net, "fwd152": fwd, "prob16": got["prob"]}
+
+
+def phase_graph_f32(g: dict, device: str = "cuda") -> None:
+    """G2, f32: the pycaffe forward() of every blob against the native f32
+    forward (TF32 off) of the same weights."""
+    from deepcut_tpu_torch.core.graph import Net
+
+    cfg, x = g["cfg"], g["x"]
+    net32 = Net(str(g["proto"]), weights=str(g["weights"]), compute_dtype=None, device=device)
+    blobs = net32.forward(data=x.cpu().numpy())
+    native32 = DeeperCut(g["params"], dataclasses.replace(cfg, compute_dtype=torch.float32),
+                         folded=False).to(device, memory_format=g["cl"])
+    with torch.inference_mode():
+        want32 = native32(x.contiguous(memory_format=g["cl"]), heads=("pose", "locref"))
+    for k in ("fc_pose", "loc_pred", "prob"):
+        ref = want32[k].cpu().numpy()
+        rel = float(np.abs(blobs[k] - ref).max() / np.abs(ref).max())
+        log(f"G2 graph f32 forward() {k} against native f32 (TF32 off): max |d| / max |ref| "
+            f"{rel:.3g} (held to {GRAPH_F32_RTOL}); forward() returned {len(blobs)} blobs")
+        if not rel <= GRAPH_F32_RTOL:
+            raise AssertionError(f"G2: f32 {k} off the native f32 forward")
+
+
+def phase_graph_int8(g: dict, prob16: torch.Tensor, device: str = "cuda") -> None:
+    """G3: Net.quantize_int8 on G2's graph, calibrated on G2's frame,
+    against the bf16 graph's prob, in the int8 envelope."""
+    from deepcut_tpu_torch.core.graph import Net
+    from deepcut_tpu_torch.ops import int8_conv
+
+    heads, x = g["heads"], g["x"]
+    q = Net(str(g["proto"]), weights=str(g["weights"]), device=device)
+    q.fold_bn()
+    q.prune(heads)
+    q.fuse_siblings()
+    before = (int8_conv.quantize_launches, int8_conv.im2col_launches, int8_conv.epilogue_launches)
+    t0 = time.perf_counter()
+    n_q = q.quantize_int8(data=x.cpu().numpy())
+    q.cast_weights()
+    prob8 = q.make_forward(heads)(q.params, {"data": x})["prob"]
+    secs = time.perf_counter() - t0
+    flips = float(((prob8 - prob16).abs() > INT8_FLIP).float().mean())
+    after = (int8_conv.quantize_launches, int8_conv.im2col_launches, int8_conv.epilogue_launches)
+    log(f"G3 Net.quantize_int8 on one {g['canvas']}x{g['canvas']} frame: {n_q} int8 convs, "
+        f"calibration and first forward {secs:.2f} s; prob |d| > {INT8_FLIP} against bf16 on "
+        f"{flips:.4f} of cells (held below {INT8_MAX_FLIPS}), max |dprob| "
+        f"{float((prob8 - prob16).abs().max()):.4g}; int8 launches (quantize, im2col, epilogue): "
+        f"{tuple(b - a for a, b in zip(before, after))}")
+    if not math.isfinite(flips) or flips >= INT8_MAX_FLIPS:
+        raise AssertionError("G3: the int8 graph outside the int8 envelope")
+    if device == "cuda" and not all(b > a for a, b in zip(before, after)):
+        raise AssertionError("G3: the int8 graph did not launch every int8 kernel")
+
+
+def graph_resnet_inputs(root: Path, rng, device: str = "cuda", depth: int = 152,
+                        canvas: int = 688) -> dict:
+    """The DeeperCut ResNet as a deploy prototxt written with the port's
+    net_spec, phase 4's tamed weights as a .caffemodel, and one frame."""
+    from deepcut_tpu_torch.models.convert import save_caffemodel
+    from deepcut_tpu_torch.models.prototxt import deepercut_deploy
+
+    cfg = deepercut_config(depth)
+    params = tame_params(cfg)
+    proto = root / f"resnet{depth}_deploy.prototxt"
+    proto.write_text(deepercut_deploy(cfg, (1, 3, canvas, canvas)).to_proto_text() + "\n")
+    weights = root / f"resnet{depth}_tamed.caffemodel"
+    save_caffemodel(str(weights), params)
+    f = frame(rng, canvas, canvas)
+    x = (torch.from_numpy(f).float().permute(2, 0, 1)[None]
+         - torch.tensor(MEAN_BGR_T).reshape(1, 3, 1, 1)).contiguous().to(device)
+    # the card's serving layout (the graph's stream is channels_last there)
+    cl = torch.channels_last if device == "cuda" else torch.contiguous_format
+    return {"cfg": cfg, "params": params, "proto": proto, "weights": weights, "x": x, "cl": cl,
+            "depth": depth, "canvas": canvas, "heads": ["fc_pose", "loc_pred", "prob"]}
+
+
+def phase_graph(rng, device: str = "cuda", depth: int = 152, canvas: int = 688) -> dict:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graph_") as tmp:
+        root = Path(tmp)
+        state = phase_graph_caffenet(root, rng, device)
+        g = graph_resnet_inputs(root, rng, device, depth, canvas)
+        served = phase_graph_serving(g, device)
+        phase_graph_f32(g, device)
+        phase_graph_int8(g, served.pop("prob16"), device)
+        state.update(served, params=g["params"], cfg=g["cfg"], canvas=canvas)
+    return state
+
+
 # -- 6. times ----------------------------------------------------------------
-def _events_ms(fn, iters: int, warmup: int = 3) -> float:
+def _events_ms(fn, iters: int, warmup: int = 3, before=None) -> float:
+    """CUDA-event ms per call of `fn`: the calls back to back, or, with
+    `before` (an L2 flush), each call alone between its own two events,
+    `before` running ahead of it outside them."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if before is None:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters)]
+    for start, end in events:
+        before()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / iters
+
+
+# Readings of torch.profiler that fail a check (a kernel under its byte
+# bound or not recorded; a forward's busy time off its graph device time),
+# listed again before the result lines; none enters PERF.md's tables.
+PROFILER_FLAGS = []
+# Graph device time minus the profiler's busy time, per kernel: the idle
+# gap between two kernels of a replayed CUDA graph (read on the card: 0.3-0.4
+# us for the native forward). More than this means the profiler missed
+# device time.
+GRAPH_GAP_US = 4.0
+# The other way: kernels of an eager run that leaves the card idle most of
+# the time read slower than in a graph's replay, which keeps it busy (read
+# on the card: the graph engine's forwards, idle share 0.6-0.9, 1.7-7%
+# under the profiler's busy). A busy time more than this share above the
+# graph's is flagged.
+GRAPH_BUSY_OVER = 0.10
+
+
+def _graph_device_ms(fn, replays: int = 5):
+    """The device time of one call of `fn` with no host gaps, measured
+    without the profiler: `fn` captured once into a CUDA graph, whose
+    replays run its kernels back to back between two CUDA events (the gaps
+    between kernels included). None when `fn` cannot be captured (it
+    synchronizes with the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                        # capture wants a warm-up on a side stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+    except RuntimeError as e:
+        log(f"CUDA graph capture failed: {str(e).splitlines()[0][:200]}")
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for _ in range(replays):
+        graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    del graph
+    torch.cuda.empty_cache()        # the graph's private memory pool
+    return start.elapsed_time(end) / replays
 
 
 def _device_profile(fn, steps: int, top: int = 0):
@@ -1091,6 +1551,7 @@ def _device_profile(fn, steps: int, top: int = 0):
     `fn`, from torch.profiler's per-kernel self device time."""
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()  # no earlier work inside the window
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             fn()
@@ -1123,9 +1584,11 @@ def serving_times(est, rng, card: str, label: str = "bf16") -> None:
             ms = _events_ms(fn, iters=20)
             busy, ops, ranked = _device_profile(fn, steps=10, top=6)
             log(f"time [{card}]: {what}, {label}, pose+locref, batch {bs}: {ms:.3f} ms/call, "
-                f"{bs * 1000 / ms:.2f} img/s; device busy {busy:.3f} ms (idle share "
+                f"{bs * 1000 / ms:.2f} img/s; device busy {busy:.3f} ms (profiler; idle share "
                 f"{1 - busy / ms:.3f}), {ops:.0f} device kernels per call (with the bias rounded twice, the "
-                f"bf16 forward: {BIAS_TWICE_KERNELS_PER_CALL[bs]})")
+                f"bf16 forward: {BIAS_TWICE_KERNELS_PER_CALL[bs]})"
+                + (_graph_check(f"{label} {what}, batch {bs}", busy, ops, fn)
+                   if fn is forward else ""))
             log(f"profile [{card}]: {what}, {label}, batch {bs}, top kernels (ms per call, launches): "
                 + "; ".join(f"{name[:70]} {t:.3f} ms x{n:.0f}" for name, t, n in ranked))
 
@@ -1160,20 +1623,19 @@ def kernel_times(card: str) -> dict:
          "prob": _events_ms(lambda: cuda_decode.decode_pose(prob, locc, vht, vht), it),
          "prob_plain": _events_ms(lambda: decode_pose_batch(prob, locc, valid_hw=(vht, vht)), it),
          "library": _events_ms(lambda: torch.max(masked.flatten(2), 2), it)}
-    busy = {k: _device_profile(fn, steps=50, top=1)[2][0] for k, fn in (
-        ("fused", lambda: cuda_decode.decode_fused(fused, J, vh, vw)),
-        ("prob", lambda: cuda_decode.decode_pose(prob, locc, vht, vht)))}
     cells = n * J * h * w
     out["decode_pose"] = dict(ms=t["fused"], plain_ms=t["fused_plain"], library_ms=t["library"],
                               bound_ms=_bound_ms(cells * 4 + n * J * 2 * 4 + n * 5 * J * 4))
     out["decode_pose_prob"] = dict(ms=t["prob"], plain_ms=t["prob_plain"], library_ms=t["library"],
                                    bound_ms=_bound_ms(cells * 4 + n * J * 2 * 4 + 2 * n * 4
                                                       + n * 5 * J * 4))
+    dev = {k: _kernel_device_us(name, fn, 50, out[name]["bound_ms"]) for k, name, fn in (
+        ("fused", "decode_pose", lambda: cuda_decode.decode_fused(fused, J, vh, vw)),
+        ("prob", "decode_pose_prob", lambda: cuda_decode.decode_pose(prob, locc, vht, vht)))}
     for key, name in (("fused", "decode fused entry (redesigned)"), ("prob", "decode prob entry")):
-        kname, dev_ms, _ = busy[key]
         log(f"time [{card}]: {name} at {(n, 3 * J if key == 'fused' else J, h, w)}: "
             f"{t[key] * 1000:.2f} us per call (CUDA events over {it} calls), device time "
-            f"{dev_ms * 1000:.2f} us ({kname[:40]}), plain PyTorch {t[key + '_plain'] * 1000:.2f} us, "
+            f"{dev[key]}, plain PyTorch {t[key + '_plain'] * 1000:.2f} us, "
             f"torch.max over masked prob {t['library'] * 1000:.2f} us, bound "
             f"{out['decode_pose' if key == 'fused' else 'decode_pose_prob']['bound_ms'] * 1000:.3f} us")
 
@@ -1181,27 +1643,53 @@ def kernel_times(card: str) -> dict:
     y, bias, res = _epilogue_case(rng, shape, True)
     ms = _events_ms(lambda: conv_epilogue.conv_epilogue(y, bias, res, True), 200)
     plain_ms = _events_ms(lambda: conv_epilogue.conv_epilogue_plain(y, bias, res, True), 50)
-    _, _, [(kname, dev_ms, _)] = _device_profile(
-        lambda: conv_epilogue.conv_epilogue(y, bias, res, True), steps=50, top=1)
     numel = y.numel()
     out["conv_epilogue"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                                 bound_ms=_bound_ms(numel * 4 * 3 + shape[1] * 4))
+    dev = _kernel_device_us("conv_epilogue", lambda: conv_epilogue.conv_epilogue(y, bias, res, True),
+                            50, out["conv_epilogue"]["bound_ms"])
     log(f"time [{card}]: conv_epilogue at {shape} with residual and ReLU: {ms * 1000:.2f} us per "
-        f"call, device time {dev_ms * 1000:.2f} us ({kname[:40]}), plain PyTorch "
+        f"call, device time {dev}, plain PyTorch "
         f"{plain_ms * 1000:.2f} us, bound {out['conv_epilogue']['bound_ms'] * 1000:.2f} us "
         f"(reads y and the residual, writes y)")
     return out
 
 
-def _timed(card: str, name: str, fn, plain, bound_ms: float, iters: int = 200) -> dict:
+def _kernel_device_us(name: str, fn, steps: int, bound_ms: float, match: str = "") -> str:
+    """The device time per call of `fn`'s longest kernel (or its kernel
+    whose name holds `match`) from the profiler, as text, held against the
+    kernel's byte bound: a reading under the bound, or a kernel the
+    profiler did not record, is flagged (PROFILER_FLAGS) and rejected."""
+    _, _, ranked = _device_profile(fn, steps=steps, top=64)
+    hits = [(k, t) for k, t, _ in ranked if match in k]
+    if not hits:
+        PROFILER_FLAGS.append(f"{name}: kernel not recorded by the profiler")
+        return "not recorded by the profiler (flagged)"
+    kname, dev_ms = hits[0]
+    text = f"{dev_ms * 1000:.2f} us ({kname[:40]})"
+    if dev_ms < bound_ms:
+        PROFILER_FLAGS.append(f"{name}: profiler device time {dev_ms * 1000:.2f} us under its "
+                              f"byte bound {bound_ms * 1000:.2f} us")
+        return text + " UNDER ITS BYTE BOUND (flagged, rejected)"
+    return text
+
+
+def _timed(card: str, name: str, fn, plain, bound_ms: float, iters: int = 200,
+           before=None, match: str = "") -> dict:
     """A kernel's wrapper per call (CUDA events), its device time
-    (profiler) and its plain version's time, logged beside its bound."""
-    ms = _events_ms(fn, iters)
-    plain_ms = _events_ms(plain, max(iters // 10, 5))
-    _, _, [(kname, dev_ms, _)] = _device_profile(fn, steps=50, top=1)
-    log(f"time [{card}]: {name}: {ms * 1000:.2f} us per call, device time {dev_ms * 1000:.2f} us "
-        f"({kname[:40]}), plain PyTorch {plain_ms * 1000:.2f} us, bound {bound_ms * 1000:.2f} us")
+    (profiler; its kernel's name holds `match`) and its plain version's
+    time, logged beside its bound; `before` (an L2 flush) runs ahead of
+    each call, outside its events."""
+    ms = _events_ms(fn, iters, before=before)
+    plain_ms = _events_ms(plain, max(iters // 10, 5), before=before)
+    dev = _kernel_device_us(name, fn if before is None else (lambda: (before(), fn())), 50,
+                            bound_ms, match)
+    log(f"time [{card}]: {name}: {ms * 1000:.2f} us per call, device time {dev}, plain PyTorch "
+        f"{plain_ms * 1000:.2f} us, bound {bound_ms * 1000:.2f} us")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=None)
+
+
+L2_FLUSH_BYTES = 256 * 2**20  # five times the H100's 50 MB L2
 
 
 def int8_kernel_times(card: str) -> dict:
@@ -1231,10 +1719,14 @@ def int8_kernel_times(card: str) -> dict:
         _bound_ms(n * 4 + n * 4 + n * 4 + n + shape[1] * 8))
     y = torch.randn((4, 64, 176, 176), generator=gen, device="cuda").contiguous(
         memory_format=torch.channels_last)
+    # its 32 MB input would stay in the 50 MB L2 between back-to-back calls
+    # and read under the HBM bound: the L2 is flushed before each call
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
     out["quantize_i8"] = _timed(
-        card, "quantize_i8 at the stem's output (4,64,176,176)",
+        card, f"quantize_i8 at the stem's output {tuple(y.shape)}, L2 flushed before each call",
         lambda: ic.quantize_i8(y, 0.0371), lambda: ic.quantize_i8_plain(y, 0.0371),
-        _bound_ms(y.numel() * 5))
+        _bound_ms(y.numel() * 5), iters=50, before=flush.zero_, match="quantize")
+    del flush
     for name, m, kk, nn in INT_MM_SHAPES:
         a = torch.randint(-127, 128, (m, kk), generator=gen, device="cuda", dtype=torch.int8)
         w = torch.randint(-127, 128, (nn, kk), generator=gen, device="cuda", dtype=torch.int8)
@@ -1252,6 +1744,72 @@ def phase_times(est, est8, rng, card: str) -> dict:
     serving_times(est, rng, card)
     serving_times(est8, rng, card, label="int8")
     return {**kernel_times(card), **int8_kernel_times(card)}
+
+
+def _graph_check(what: str, busy: float, ops: float, fn) -> str:
+    """The profiler's busy time per call of `fn` held against its CUDA-graph
+    device time (`_graph_device_ms`), as text; a disagreement is flagged."""
+    dev = _graph_device_ms(fn)
+    if dev is None:
+        PROFILER_FLAGS.append(f"{what}: no graph device time, the profiler's busy unverified")
+        return "; graph device time not measured (flagged: busy unverified)"
+    gap_us = (dev - busy) / ops * 1000
+    ok = busy <= dev * (1 + GRAPH_BUSY_OVER) and gap_us <= GRAPH_GAP_US
+    if not ok:
+        PROFILER_FLAGS.append(f"{what}: profiler busy {busy:.3f} ms against graph device time "
+                              f"{dev:.3f} ms ({gap_us:.2f} us per kernel)")
+    return (f"; device time as a CUDA graph (no profiler, no host gaps) {dev:.3f} ms, "
+            f"{gap_us:.2f} us per kernel beyond the profiler's busy"
+            + ("" if ok else " (flagged: the profiler's busy disagrees)"))
+
+
+def _profiled(card: str, what: str, fn, bs: int, iters: int = 20, steps: int = 10,
+              top: int = 0, graph: bool = False) -> float:
+    """CUDA-event wall time, device busy time, idle share and kernels per
+    call of `fn` (and its `top` kernels by device time), and with `graph`
+    the busy time held against the CUDA-graph device time, logged; returns
+    the wall ms."""
+    ms = _events_ms(fn, iters=iters)
+    busy, ops, ranked = _device_profile(fn, steps=steps, top=top)
+    log(f"time [{card}]: {what}: {ms:.3f} ms/call, {bs * 1000 / ms:.2f} img/s; device busy "
+        f"{busy:.3f} ms (profiler; idle share {1 - busy / ms:.3f}), {ops:.0f} device kernels per "
+        f"call" + (_graph_check(what, busy, ops, fn) if graph else ""))
+    if ranked:
+        log(f"profile [{card}]: {what}, top kernels (ms per call, launches): "
+            + "; ".join(f"{name[:70]} {t:.3f} ms x{n:.0f}" for name, t, n in ranked))
+    return ms
+
+
+def graph_times(state: dict, rng, card: str) -> None:
+    """The graph engine's serving times: CaffeNet's Classifier.predict over 2
+    frames (20 crops, f32) and its bf16 make_forward at batch 10; the
+    ResNet-152 graph's make_forward at batch 1 and 4 on a 688 canvas beside
+    the native DeeperCut bf16 forward of the same weights."""
+    from deepcut_tpu_torch.models.resnet import fold_bn
+
+    cls, frames = state["classifier"], state["frames"]
+    _profiled(card, "CaffeNet Classifier.predict, 2 frames (20 crops of 227x227), f32 (TF32 off)",
+              lambda: cls.predict(frames), 2, iters=5, steps=3)
+    serve, fwd, x10 = state["serve"], state["fwd"], state["x10"]
+    _profiled(card, "CaffeNet make_forward, bf16, batch 10 of 227x227",
+              lambda: fwd(serve.params, {"data": x10}), 10, graph=True)
+    net, gfwd, cfg = state["net"], state["fwd152"], state["cfg"]
+    native = DeeperCut(fold_bn(state["params"], cfg), cfg).to("cuda", memory_format=torch.channels_last)
+    c = state["canvas"]
+    for bs in (1, 4):
+        x = torch.from_numpy((rng.rand(bs, 3, c, c) * 255 - 117).astype(np.float32)).to("cuda")
+        xcl = x.contiguous(memory_format=torch.channels_last)
+
+        def native_fwd():
+            with torch.inference_mode():
+                native(xcl, heads=("pose", "locref"))
+
+        _profiled(card, f"ResNet-152 graph make_forward (fc_pose, loc_pred, prob), bf16, "
+                  f"{c}x{c}, batch {bs}", lambda: gfwd(net.params, {"data": x}), bs, top=8,
+                  graph=True)
+        _profiled(card, f"ResNet-152 native DeeperCut forward (pose, locref), bf16, {c}x{c}, "
+                  f"batch {bs}", native_fwd, bs, top=8, graph=True)
+    del native
 
 
 def phase_train_times(card: str):
@@ -1321,6 +1879,17 @@ def _counts() -> dict:
             "quantize_i8": int8_conv.quantize_launches}
 
 
+def _record_geometries(on: bool):
+    """Start recording the kernels' launch geometries, or stop; returns
+    what was recorded until then."""
+    from deepcut_tpu_torch.ops import conv_epilogue, int8_conv
+
+    recorded = (conv_epilogue.geometries, int8_conv.geometries)
+    conv_epilogue.record_geometries(on)
+    int8_conv.record_geometries(on)
+    return recorded
+
+
 def _zero_counts() -> None:
     from deepcut_tpu_torch.ops import conv_epilogue, int8_conv
 
@@ -1337,6 +1906,7 @@ def main() -> int:
     phase_build()
     errs = phase_kernels_vs_plain()
     rng = np.random.RandomState(SEED)
+    _record_geometries(True)                     # every main path's launch geometries
     _zero_counts()                               # the serving path starts here
     est = phase_slice(rng)
     phase_server(est, rng)
@@ -1348,21 +1918,32 @@ def main() -> int:
     _zero_counts()                               # the training path starts here
     phase_train(rng)
     training = _counts()                         # and ends here
+    _zero_counts()                               # the graph engine's path starts here
+    graph_state = phase_graph(rng)
+    graph = _counts()                            # and ends here
+    replay_path_geometries(*_record_geometries(False))
     log(f"kernel launches: serving path {serving}, int8 serving path {int8}, "
-        f"training path {training}")
+        f"training path {training}, graph engine path {graph}")
     for path, counts, need in (("serving", serving, ("conv_epilogue", "decode_pose",
                                                      "decode_pose_prob")),
                                ("int8 serving", int8, KERNELS),
-                               ("training", training, ("conv_epilogue", "decode_pose"))):
+                               ("training", training, ("conv_epilogue", "decode_pose")),
+                               ("graph engine", graph, ("conv_epilogue", "quantize_i8",
+                                                        "int8_im2col", "int8_epilogue"))):
         idle = [k for k in need if counts[k] == 0]
         if idle:
             raise AssertionError(f"the {path} path never launched {idle}")
     times = phase_times(est, est8, rng, card)
     del est, est8
+    graph_times(graph_state, rng, card)
+    del graph_state
     phase_train_times(card)
+    log(f"profiler checks: {len(PROFILER_FLAGS)} readings flagged"
+        + "".join(f"\n  flagged: {f}" for f in PROFILER_FLAGS))
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": serving[name] + int8[name] + training[name], "max_abs_err": errs[name],
+         "launches": serving[name] + int8[name] + training[name] + graph[name],
+         "max_abs_err": errs[name],
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",
          "library_ms": times[name]["library_ms"]}

@@ -269,23 +269,23 @@ int grid_for(long long work) {
 // alignment and divisibility (see ops/int8_conv.py) and sizes below 2**31
 // rows / pixels.
 extern "C" int int8_im2col_launch(const signed char* x, signed char* out, int N, int H, int W,
-                                  int C, int k, int stride, int pad, int dil, int lhs, int oh,
-                                  int ow, int rows, int ldk, int vec, int device,
+                                  int C, int kh, int kw, int stride, int pad, int dil, int lhs,
+                                  int oh, int ow, int rows, int ldk, int vec, int device,
                                   cudaStream_t stream) {
   (void)N;  // rows = N * oh * ow
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long vecs = static_cast<long long>(rows) * k * k * (C / vec);
+  const long long vecs = static_cast<long long>(rows) * kh * kw * (C / vec);
   const int grid = grid_for(vecs);
   if (vec == 16) {
-    im2col_kernel<16><<<grid, kThreads, 0, stream>>>(x, out, H, W, C, k, stride, pad, dil, lhs,
-                                                     oh, ow, rows, k * k, ldk);
+    im2col_kernel<16><<<grid, kThreads, 0, stream>>>(x, out, H, W, C, kw, stride, pad, dil, lhs,
+                                                     oh, ow, rows, kh * kw, ldk);
   } else if (vec == 4) {
-    im2col_kernel<4><<<grid, kThreads, 0, stream>>>(x, out, H, W, C, k, stride, pad, dil, lhs,
-                                                    oh, ow, rows, k * k, ldk);
+    im2col_kernel<4><<<grid, kThreads, 0, stream>>>(x, out, H, W, C, kw, stride, pad, dil, lhs,
+                                                    oh, ow, rows, kh * kw, ldk);
   } else {
-    im2col_kernel<1><<<grid, kThreads, 0, stream>>>(x, out, H, W, C, k, stride, pad, dil, lhs,
-                                                    oh, ow, rows, k * k, ldk);
+    im2col_kernel<1><<<grid, kThreads, 0, stream>>>(x, out, H, W, C, kw, stride, pad, dil, lhs,
+                                                    oh, ow, rows, kh * kw, ldk);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -85,3 +85,57 @@ def save_caffemodel(path: str, params: Mapping[str, Mapping[str, torch.Tensor]])
     from deepcut_tpu_torch.proto.caffemodel import save_caffemodel as save
 
     save(path, params_to_numpy(params))
+
+
+# -- the graph engine's params, by layer type ---------------------------------
+def _graph_layout(layer_type: str, key: str, a: np.ndarray, to_torch: bool) -> np.ndarray:
+    """One blob between the JAX package's graph layouts and the port's:
+    conv weights HWIO <-> OIHW, deconv weights ``(kh, kw, Cin, Cout/g)`` <->
+    ``(Cin, Cout/g, kh, kw)`` (transposed, never flipped), the 4-D bias of a
+    two-bottom Scale / Bias NHWC <-> NCHW; InnerProduct's ``(N_out, K)`` (or
+    ``(K, N_out)``) and every other blob as they are."""
+    if a.ndim != 4:
+        return a
+    if key in ("w", "w_q") and layer_type == "Convolution":
+        return a.transpose(3, 2, 0, 1) if to_torch else a.transpose(2, 3, 1, 0)
+    if key in ("w", "w_q") and layer_type == "Deconvolution":
+        return a.transpose(2, 3, 0, 1)  # its own inverse
+    if key == "beta" and layer_type in ("Scale", "Bias"):
+        return a.transpose(0, 3, 1, 2) if to_torch else a.transpose(0, 2, 3, 1)
+    return a
+
+
+def graph_params_from_numpy(params: Mapping[str, Mapping[str, np.ndarray]],
+                            layer_types: Mapping[str, str]) -> Params:
+    """A JAX `deepcut_tpu.core.graph.Net.params` dict (numpy, or anything
+    `np.asarray` takes) -> the port's `core.graph.Net` layouts as CPU
+    tensors, chosen by each layer's type in `layer_types` (``Net.layer_types()``)
+    and not by its name. Floats become f32 (a bf16 blob's values are kept),
+    int8 ``w_q`` stays int8, ``act_scale`` a 0-dim f32."""
+    out: Params = {}
+    for name, entry in params.items():
+        t = layer_types.get(name, "")
+        conv: Dict[str, torch.Tensor] = {}
+        for k, v in entry.items():
+            a = np.asarray(v)
+            a = a.astype(np.int8 if k == "w_q" else np.float32)
+            conv[k] = torch.tensor(np.ascontiguousarray(_graph_layout(t, k, a, True)))
+        out[name] = conv
+    return out
+
+
+def graph_params_to_numpy(params: Mapping[str, Mapping[str, torch.Tensor]],
+                          layer_types: Mapping[str, str]) -> Dict[str, Dict[str, np.ndarray]]:
+    """The exact inverse of `graph_params_from_numpy`: the port's graph
+    params (any device) -> contiguous numpy in the JAX package's layouts,
+    f32 (a bf16 blob's values widened) and int8 ``w_q``."""
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    for name, entry in params.items():
+        t = layer_types.get(name, "")
+        conv: Dict[str, np.ndarray] = {}
+        for k, v in entry.items():
+            v = v.detach().cpu()
+            a = v.numpy() if v.dtype == torch.int8 else v.float().numpy()
+            conv[k] = np.array(_graph_layout(t, k, a, False), order="C")
+        out[name] = conv
+    return out

@@ -67,21 +67,39 @@ def quantize_weights(folded_params: Mapping, *, quantize_deconv: bool = False) -
                 or "w" not in entry or entry["w"].dim() != 4):
             out[name] = dict(entry)
             continue
-        w = entry["w"].float()
-        cout_dim = 1 if deconv else 0  # deconv (Cin, Cout, kh, kw), conv OIHW
-        dims = tuple(d for d in range(4) if d != cout_dim)
-        s = w.abs().amax(dim=dims) / 127.0
-        s = torch.where(s == 0, torch.ones_like(s), s)
-        shape = [1, 1, 1, 1]
-        shape[cout_dim] = -1
-        out[name] = {
-            "w_q": torch.clamp(torch.round(w / s.reshape(shape)), -127, 127).to(torch.int8),
-            "w_scale": s,
-            "b": entry["b"].float() if "b" in entry else torch.zeros_like(s),
-        }
+        # deconv (Cin, Cout, kh, kw), conv OIHW
+        w_q, s = quantize_conv_weight(entry["w"], cout_dim=1 if deconv else 0)
+        out[name] = {"w_q": w_q, "w_scale": s,
+                     "b": entry["b"].float() if "b" in entry else torch.zeros_like(s)}
         if deconv:
             out[name]["w"] = entry["w"]
     return out
+
+
+def quantize_conv_weight(w: torch.Tensor, cout_dim: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A 4-D weight -> (int8 ``round(w / s)`` clipped to +-127, the f32
+    scales s (Cout,)): per output channel (dim `cout_dim`) absmax / 127, a
+    zero channel getting scale 1."""
+    w = w.float()
+    s = w.abs().amax(dim=tuple(d for d in range(4) if d != cout_dim)) / 127.0
+    s = torch.where(s == 0, torch.ones_like(s), s)
+    shape = [1, 1, 1, 1]
+    shape[cout_dim] = -1
+    return torch.clamp(torch.round(w / s.reshape(shape)), -127, 127).to(torch.int8), s
+
+
+def act_scale(x: torch.Tensor, percentile: float = 100.0) -> torch.Tensor:
+    """A conv input's static activation scale, an f32 0-d tensor on the CPU:
+    its absmax (or, below 100, the `percentile` of a subsample of |x|) over
+    127, floored at 1e-8. A 4-D NCHW input is read in NHWC order, as the
+    JAX package's subsample reads it."""
+    a = x.float().abs()
+    a = (a.permute(0, 2, 3, 1) if a.dim() == 4 else a).reshape(-1)
+    if percentile >= 100.0:
+        v = a.max().cpu()
+    else:
+        v = percentile_f32(a[::max(a.numel() // SUBSAMPLE, 1)], percentile)
+    return torch.clamp_min(v / 127.0, 1e-8)
 
 
 def percentile_f32(a: torch.Tensor, q: float) -> torch.Tensor:
@@ -113,17 +131,8 @@ def calibrate_act_scales(folded_params: Mapping, cfg: DeeperCutConfig, sample: t
     ``res3d_{head}`` per enabled head (one tensor, one value)."""
     scales: Dict[str, torch.Tensor] = {}
 
-    def measure(xf):
-        # flattened in NHWC order, as the JAX package's subsample reads it
-        a = xf.float().abs().permute(0, 2, 3, 1).reshape(-1)
-        if percentile >= 100.0:
-            v = a.max().cpu()
-        else:
-            v = percentile_f32(a[::max(a.numel() // SUBSAMPLE, 1)], percentile)
-        return torch.clamp_min(v / 127.0, 1e-8)
-
     def cbr(xf, name, *, stride=1, pad=0, dilation=1, act=True):
-        scales[name] = measure(xf)
+        scales[name] = act_scale(xf, percentile)
         p = folded_params[name]
         y = conv2d_f32(xf, p["w"], p.get("b"), stride=stride, pad=pad, dilation=dilation)
         return relu(y) if act else y
@@ -140,7 +149,7 @@ def calibrate_act_scales(folded_params: Mapping, cfg: DeeperCutConfig, sample: t
             z = cbr(z, f"res{block}_branch2b", pad=d, dilation=d)
             z = cbr(z, f"res{block}_branch2c", act=False)
             y = relu(shortcut + z)
-            scales[f"res{block}#out"] = measure(y)  # the int8-resident stream boundary
+            scales[f"res{block}#out"] = act_scale(y, percentile)  # the int8-resident stream boundary
     scales["res5c_up"] = scales[f"res{block}#out"]  # the deconv reads res5c
     for head, _ in _head_list(cfg, None):               # the skip convs read the tap
         scales[f"res3d_{head}"] = scales[f"res{skip_name}#out"]

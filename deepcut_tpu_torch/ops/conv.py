@@ -143,6 +143,14 @@ def _f32_conv(x, w, stride, pad, dilation, groups, transposed, *, allow_tf32: bo
     return fn(x, w, None, stride=stride, padding=pad, dilation=dilation, groups=groups)
 
 
+def full_f32_conv(x: torch.Tensor, w: torch.Tensor, *, stride=1, pad=0, dilation=1,
+                  groups: int = 1, transposed: bool = False) -> torch.Tensor:
+    """Bias-free f32 convolution (or transposed convolution) with TF32 off
+    for this call, whatever the caller's global flag."""
+    return _f32_conv(x.float(), w.float(), stride, pad, dilation, groups, transposed,
+                     allow_tf32=False)
+
+
 def conv2d_f32(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, *,
                stride=1, pad=0, dilation=1) -> torch.Tensor:
     """f32 convolution + f32 bias in full f32: TF32 is off for this call

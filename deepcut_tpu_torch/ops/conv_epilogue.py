@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -26,6 +26,10 @@ from deepcut_tpu_torch.native import PKG, NativeLib, build
 LIB = NativeLib(PKG / "csrc" / "conv_epilogue.cu")
 
 launches = 0  # kernel launches since the last reset (CPU calls do not count)
+# while a dict (`record_geometries`): each distinct launch geometry (shapes,
+# strides, modes), so that a caller can replay every geometry a path gave
+# the kernel against its plain version
+geometries: Optional[Dict[tuple, tuple]] = None
 _lock = threading.Lock()
 _lib = None
 
@@ -41,6 +45,20 @@ def _library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+def view_geometry(t: Optional[torch.Tensor]):
+    """A tensor view's (dtype, shape, strides, storage offset) or None."""
+    if t is None:
+        return None
+    return (str(t.dtype), tuple(t.shape), tuple(t.stride()), t.storage_offset())
+
+
+def record_geometries(on: bool = True) -> None:
+    """Start (afresh) or stop recording launch geometries (`geometries`)."""
+    global geometries
+    with _lock:
+        geometries = {} if on else None
 
 
 def conv_epilogue_plain(y: torch.Tensor, bias: Optional[torch.Tensor],
@@ -103,4 +121,7 @@ def conv_epilogue(y: torch.Tensor, bias: Optional[torch.Tensor],
         raise RuntimeError(f"conv_epilogue kernel launch failed: cudaError {err}")
     with _lock:
         launches += 1
+        if geometries is not None:
+            geometries.setdefault((view_geometry(y), bias is not None, view_geometry(residual),
+                                   relu), ())
     return y

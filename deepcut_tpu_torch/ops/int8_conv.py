@@ -9,8 +9,9 @@ PyTorch's CUDA build has no int8 convolution, so the port lowers each one
 to a matrix product:
 
 - operand A: `int8_im2col` gathers the (N*oh*ow, kh*kw*C) int8 patch matrix
-  from an NHWC (channels_last) int8 tensor, zero outside the image, with
-  stride, padding, dilation and an input (lhs) dilation; the int8 deconv is
+  from an NHWC (channels_last) int8 tensor, zero outside the image, for a
+  square or rectangular kernel with stride, padding, dilation and an input
+  (lhs) dilation; the int8 deconv is
   a conv over the input dilated by 2 with the flipped kernel, exactly
   ``_deconv_i8``'s lowering. A 1x1 stride-1 conv takes the int8 tensor as
   it is (rows of C channels);
@@ -42,13 +43,14 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from deepcut_tpu_torch.native import PKG, NativeLib, build
+from deepcut_tpu_torch.ops.conv_epilogue import view_geometry
 
 LIB = NativeLib(PKG / "csrc" / "int8_conv.cu")
 
@@ -56,6 +58,11 @@ LIB = NativeLib(PKG / "csrc" / "int8_conv.cu")
 im2col_launches = 0
 epilogue_launches = 0
 quantize_launches = 0
+# while a dict (`record_geometries`): per kernel, each distinct launch
+# geometry (shapes, strides, modes) -> the first call's scales, so that a
+# caller can replay every geometry a path gave the kernels against their
+# plain versions
+geometries: Optional[Dict[str, Dict[tuple, tuple]]] = None
 _lock = threading.Lock()
 _lib = None
 
@@ -71,7 +78,7 @@ def _library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build(LIB)[0]))
             ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-            lib.int8_im2col_launch.argtypes = [ptr, ptr] + [i32] * 14 + [i32, ptr]
+            lib.int8_im2col_launch.argtypes = [ptr, ptr] + [i32] * 15 + [i32, ptr]
             lib.int8_epilogue_launch.argtypes = ([ptr, i32, ptr, ptr, ptr, i32, f32, i64, i64, i64,
                                                   ptr, ptr, f32] + [i32] * 7 + [i32, ptr])
             lib.quantize_i8_launch.argtypes = [ptr, ptr, i64, f32, i32, i32, ptr]
@@ -81,9 +88,19 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def _count(name: str) -> None:
+def _count(name: str, geometry: tuple, values: tuple = ()) -> None:
     with _lock:
         globals()[name] += 1
+        if geometries is not None:
+            geometries.setdefault(name, {}).setdefault(geometry, values)
+
+
+def record_geometries(on: bool = True) -> None:
+    """Start (afresh) or stop recording each distinct launch geometry (see
+    `geometries`)."""
+    global geometries
+    with _lock:
+        geometries = {} if on else None
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -155,24 +172,35 @@ def _dilate_pad(x: torch.Tensor, pad: int, lhs_dilation: int) -> torch.Tensor:
     return out
 
 
-def conv_out_hw(h: int, w: int, k: int, *, stride=1, pad=0, dilation=1, lhs_dilation=1):
-    span = dilation * (k - 1) + 1
-    return (((h - 1) * lhs_dilation + 1 + 2 * pad - span) // stride + 1,
-            ((w - 1) * lhs_dilation + 1 + 2 * pad - span) // stride + 1)
+Kernel = Union[int, Tuple[int, int]]
 
 
-def int8_im2col_plain(x: torch.Tensor, k: int, *, stride=1, pad=0, dilation=1,
-                      lhs_dilation=1) -> torch.Tensor:
-    """(N, C, H, W) int8 -> (N*oh*ow, k*k*C) int8 patch rows, K ordered
-    (kh, kw, C) like the packed weights, zero outside the image."""
+def kernel_hw(k: Kernel) -> Tuple[int, int]:
+    """A square kernel's size or a (kh, kw) pair -> (kh, kw)."""
+    return (int(k), int(k)) if isinstance(k, int) else (int(k[0]), int(k[1]))
+
+
+def conv_out_hw(h: int, w: int, k: Kernel, *, stride=1, pad=0, dilation=1, lhs_dilation=1):
+    kh, kw = kernel_hw(k)
+    return (((h - 1) * lhs_dilation + 1 + 2 * pad - dilation * (kh - 1) - 1) // stride + 1,
+            ((w - 1) * lhs_dilation + 1 + 2 * pad - dilation * (kw - 1) - 1) // stride + 1)
+
+
+def int8_im2col_plain(x: torch.Tensor, k: Kernel, *, stride=1, pad=0, dilation=1,
+                      lhs_dilation=1, min_rows: int = 0, width: int = 0) -> torch.Tensor:
+    """(N, C, H, W) int8 -> (max(N*oh*ow, min_rows), max(kh*kw*C, width))
+    int8 patch rows, K ordered (kh, kw, C) like the packed weights, zero
+    outside the image and in the padding rows and columns."""
     n, c, h, w = x.shape
+    kh, kw = kernel_hw(k)
     oh, ow = conv_out_hw(h, w, k, stride=stride, pad=pad, dilation=dilation,
                          lhs_dilation=lhs_dilation)
     xp = _dilate_pad(x, pad, lhs_dilation)
     taps = [xp[:, i * dilation:i * dilation + (oh - 1) * stride + 1:stride,
                j * dilation:j * dilation + (ow - 1) * stride + 1:stride]
-            for i in range(k) for j in range(k)]
-    return torch.stack(taps, dim=3).reshape(n * oh * ow, k * k * c)
+            for i in range(kh) for j in range(kw)]
+    a = torch.stack(taps, dim=3).reshape(n * oh * ow, kh * kw * c)
+    return F.pad(a, (0, max(width - a.shape[1], 0), 0, max(min_rows - a.shape[0], 0)))
 
 
 def conv_i8_plain(x_q: torch.Tensor, w_q: torch.Tensor, *, stride=1, pad=0, dilation=1,
@@ -258,29 +286,30 @@ def quantize_i8(x: torch.Tensor, s) -> torch.Tensor:
     vec4 = n % 4 == 0 and x.data_ptr() % 16 == 0 and y.data_ptr() % 4 == 0
     _raise_on(_library().quantize_i8_launch(x.data_ptr(), y.data_ptr(), n, recip_f32(s),
                                             int(vec4), x.device.index, _stream(x)), "quantize_i8")
-    _count("quantize_launches")
+    _count("quantize_launches", view_geometry(x), (float(s),))
     return y
 
 
-def int8_im2col(x: torch.Tensor, k: int, *, stride=1, pad=0, dilation=1, lhs_dilation=1,
+def int8_im2col(x: torch.Tensor, k: Kernel, *, stride=1, pad=0, dilation=1, lhs_dilation=1,
                 min_rows: int = 0, width: int = 0) -> torch.Tensor:
-    """(N, C, H, W) int8, channels_last on the card -> (max(N*oh*ow,
-    min_rows), max(k*k*C, width)) int8 patch rows; the rows past N*oh*ow
-    and the columns past k*k*C are zero (the GEMM's padding)."""
+    """(N, C, H, W) int8, channels_last on the card, and a kernel of k x k
+    or (kh, kw) -> (max(N*oh*ow, min_rows), max(kh*kw*C, width)) int8 patch
+    rows; the rows past N*oh*ow and the columns past kh*kw*C are zero (the
+    GEMM's padding)."""
     if not _device_check(x, "int8_im2col"):
-        a = int8_im2col_plain(x, k, stride=stride, pad=pad, dilation=dilation,
-                              lhs_dilation=lhs_dilation)
-        return F.pad(a, (0, max(width - a.shape[1], 0), 0, max(min_rows - a.shape[0], 0)))
+        return int8_im2col_plain(x, k, stride=stride, pad=pad, dilation=dilation,
+                                 lhs_dilation=lhs_dilation, min_rows=min_rows, width=width)
     if x.dtype != torch.int8 or x.dim() != 4 or not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError(f"int8_im2col: x must be 4-D int8 channels_last, got {x.dtype} "
                          f"{tuple(x.shape)} strides {x.stride()}")
     n, c, h, w = x.shape
+    kh, kw = kernel_hw(k)
     oh, ow = conv_out_hw(h, w, k, stride=stride, pad=pad, dilation=dilation,
                          lhs_dilation=lhs_dilation)
     rows = n * oh * ow
-    if oh < 1 or ow < 1 or rows >= 2**31 or rows * k * k * c >= 2**40:
-        raise ValueError(f"int8_im2col: unsupported output {n}x{oh}x{ow}x{k * k * c}")
-    kk = k * k * c
+    kk = kh * kw * c
+    if oh < 1 or ow < 1 or rows >= 2**31 or rows * kk >= 2**40:
+        raise ValueError(f"int8_im2col: unsupported output {n}x{oh}x{ow}x{kk}")
     shape = (max(rows, min_rows), max(kk, width))
     if shape[1] > kk:  # zero columns: only for channel counts no trunk conv has
         out = torch.zeros(shape, dtype=torch.int8, device=x.device)
@@ -291,13 +320,14 @@ def int8_im2col(x: torch.Tensor, k: int, *, stride=1, pad=0, dilation=1, lhs_dil
     vec = next(v for v in (16, 4, 1) if c % v == 0 and shape[1] % v == 0
                and x.data_ptr() % v == 0 and out.data_ptr() % v == 0)
     _raise_on(_library().int8_im2col_launch(
-        x.data_ptr(), out.data_ptr(), n, h, w, c, k, stride, pad, dilation, lhs_dilation,
+        x.data_ptr(), out.data_ptr(), n, h, w, c, kh, kw, stride, pad, dilation, lhs_dilation,
         oh, ow, rows, shape[1], vec, x.device.index, _stream(x)), "int8_im2col")
-    _count("im2col_launches")
+    _count("im2col_launches", (view_geometry(x), (kh, kw), stride, pad, dilation, lhs_dilation,
+                               min_rows, width))
     return out
 
 
-def conv_i8(x_q: torch.Tensor, packed: torch.Tensor, cout: int, k: int, *, stride=1, pad=0,
+def conv_i8(x_q: torch.Tensor, packed: torch.Tensor, cout: int, k: Kernel, *, stride=1, pad=0,
             dilation=1, lhs_dilation=1) -> torch.Tensor:
     """int8 (N, Cin, H, W) * packed int8 weight -> the int32 accumulator
     (N, cout, oh, ow), channels_last (a view of the product's padded
@@ -308,7 +338,8 @@ def conv_i8(x_q: torch.Tensor, packed: torch.Tensor, cout: int, k: int, *, strid
     oh, ow = conv_out_hw(h, w, k, stride=stride, pad=pad, dilation=dilation,
                          lhs_dilation=lhs_dilation)
     rows = n * oh * ow
-    if (k == 1 and stride == 1 and pad == 0 and lhs_dilation == 1 and rows >= MIN_ROWS
+    if (kernel_hw(k) == (1, 1) and stride == 1 and pad == 0 and lhs_dilation == 1
+            and rows >= MIN_ROWS
             and packed.shape[1] == x_q.shape[1]):
         a = x_q.permute(0, 2, 3, 1).reshape(rows, -1)
     else:
@@ -382,7 +413,9 @@ def int8_epilogue(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
         recip_f32(requant_s) if requant_s is not None else 0.0,
         n * h * w, c, h, w, int(bf16), int(relu), int(vec4), acc.device.index, _stream(acc)),
         "int8_epilogue")
-    _count("epilogue_launches")
+    _count("epilogue_launches",
+           (view_geometry(acc), view_geometry(residual), relu, bf16, f32_out, requant_s is not None),
+           (residual_scale, requant_s))
     return out, out_q
 
 

@@ -1,21 +1,35 @@
-"""Command-line front end of the port: the `train` verb for DeeperCut nets.
+"""Command-line front end of the port: train / test / time / device_query.
 
     python -m deepcut_tpu_torch.tools.cli train -solver SOLVER.prototxt \\
         [-weights X.caffemodel] [-snapshot S.npz] [-mixed_precision] [-remat] \\
         [-augment_device] [-host_targets] [-device cuda]
+    python -m deepcut_tpu_torch.tools.cli test -model DEPLOY.prototxt [-weights X.caffemodel] \\
+        [-iterations 50] [-fp32] [-device cuda]
+    python -m deepcut_tpu_torch.tools.cli time -model DEPLOY.prototxt [-iterations 10] \\
+        [-fold_bn] [-fp32] [-per_layer] [-trace DIR] [-device cuda]
+    python -m deepcut_tpu_torch.tools.cli device_query
 
-Counterpart of `deepcut_tpu.tools.cli train` for solvers whose net has a
-PoseData layer: the layer's pose_data_param configures the targets and the
-data source (`data.pipeline.PoseDataSource`, uint8 canvases,
-compact annotations rasterized on the device unless -host_targets), the
-ResNet trunk is built natively, and `solver.solver.PoseSolver` trains it on
-one device. -mesh / -spatial (multi-GPU) and solvers without a PoseData
-layer (the generic graph engine) raise NotImplementedError.
+Counterpart of `deepcut_tpu.tools.cli` (tools/caffe.cpp's brew verbs).
 
-Precision: the reference trains in pure f32, and cuDNN's default TF32 is
-not f32, so f32 training turns TF32 off for cuDNN and matmuls and says so
-in its first log line; -mixed_precision (bf16 convs, f32 params, losses
-and updates) is the fast path.
+`train`, for solvers whose net has a PoseData layer: the layer's
+pose_data_param configures the targets and the data source
+(`data.pipeline.PoseDataSource`, uint8 canvases, compact annotations
+rasterized on the device unless -host_targets), the ResNet trunk is built
+natively, and `solver.solver.PoseSolver` trains it on one device. -mesh /
+-spatial (multi-GPU) and solvers without a PoseData layer (the generic graph
+engine) raise NotImplementedError. Precision: the reference trains in pure
+f32, and cuDNN's default TF32 is not f32, so f32 training turns TF32 off
+for cuDNN and matmuls and says so in its first log line; -mixed_precision
+(bf16 convs, f32 params, losses and updates) is the fast path.
+
+`test` and `time` build the graph engine's `core.graph.Net` from a prototxt
+with declared inputs (a net with data layers raises until the engine's
+training slice). `test` runs `Net.forward` on seeded random inputs and
+prints each output's mean over the iterations (tools/caffe.cpp:229-298).
+`time` times the serving forward `Net.make_forward` (bf16 stream, or f32
+with -fp32; -fold_bn folds BatchNorm and casts the weights first) with CUDA
+events on the card (the host clock on the CPU); -per_layer times each layer
+alone on the staged stream, -trace writes a `torch.profiler` trace.
 """
 
 from __future__ import annotations
@@ -23,7 +37,10 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-from typing import List, Optional
+import time as _time
+from typing import Dict, List, Optional
+
+import numpy as np
 
 from deepcut_tpu_torch.data.pipeline import PoseDataSource, Prefetcher
 from deepcut_tpu_torch.data.window_file import parse_stats_file
@@ -151,6 +168,125 @@ def train(args) -> int:
     return 0
 
 
+def device_query(args) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA card is visible: the port runs on the CPU only with -device cpu")
+        return 0
+    for i in range(torch.cuda.device_count()):
+        p = torch.cuda.get_device_properties(i)
+        print(f"Device id:   {i}")
+        print(f"  name:      {p.name}")
+        print(f"  compute:   sm_{p.major}{p.minor}, {p.multi_processor_count} SMs")
+        print(f"  memory:    {p.total_memory / 2**30:.2f} GiB")
+    return 0
+
+
+def _graph_net(args, **kw):
+    import torch
+
+    from deepcut_tpu_torch.core.graph import Net
+
+    return Net(args.model, weights=args.weights or None, phase="TEST",
+               compute_dtype=None if args.fp32 else torch.bfloat16, device=args.device, **kw)
+
+
+def test(args) -> int:
+    net = _graph_net(args)
+    if not net.input_shapes:
+        print("model has no declared inputs", file=sys.stderr)
+        return 1
+    rng = np.random.RandomState(0)
+    sums: Dict[str, float] = {}
+    for _ in range(args.iterations):
+        outs = net.forward(**{nm: rng.randn(*sh).astype(np.float32)
+                              for nm, sh in net.input_shapes.items()})
+        for nm in net.output_names():
+            sums[nm] = sums.get(nm, 0.0) + float(np.mean(outs[nm]))
+    for nm, total in sums.items():
+        print(f"{nm} = {total / args.iterations:.6f}")
+    return 0
+
+
+class _Clock:
+    """Milliseconds of `n` calls: CUDA events on the card, the host clock
+    on the CPU."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+
+    def __call__(self, fn, n: int) -> float:
+        import torch
+
+        if self.cuda:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                fn()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end)
+        t0 = _time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (_time.perf_counter() - t0) * 1e3
+
+
+def time_cmd(args) -> int:
+    import torch
+
+    net = _graph_net(args)
+    if not net.input_shapes:
+        print("model has no declared inputs", file=sys.stderr)
+        return 1
+    print(f"Timing {net.name}: {len(net._plan)} layers, {args.iterations} iterations, "
+          f"{'f32 (TF32 off)' if args.fp32 else 'bf16'} on {net.device}")
+    if args.fold_bn:
+        print(f"folded {net.fold_bn()} BN chains; weights cast to {'f32' if args.fp32 else 'bf16'}")
+        net.cast_weights(torch.float32 if args.fp32 else torch.bfloat16)
+    inputs = {nm: torch.zeros(sh, device=net.device) for nm, sh in net.input_shapes.items()}
+    fwd = net.make_forward()
+    clock = _Clock(net.device)
+    clock(lambda: fwd(net.params, inputs), 2)  # warm-up: cuDNN plans, the weights' preparation
+    ms = clock(lambda: fwd(net.params, inputs), args.iterations) / args.iterations
+    print(f"Average forward (make_forward): {ms:.3f} ms")
+    if args.trace:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if net.device.type == "cuda" else [])
+        with profile(activities=acts) as prof:
+            for _ in range(max(args.iterations, 3)):
+                fwd(net.params, inputs)
+            if net.device.type == "cuda":
+                torch.cuda.synchronize()
+        os.makedirs(args.trace, exist_ok=True)
+        path = os.path.join(args.trace, f"{net.name or 'net'}_forward.json")
+        prof.export_chrome_trace(path)
+        print(f"profiler trace written to {path} (chrome://tracing, Perfetto)")
+    if args.per_layer:
+        # each layer alone on the staged stream (diagnostic: each call pays
+        # its own launches and host time, which the whole forward overlaps)
+        prepared = net._prepare(net.params)
+        rows = []
+        with torch.inference_mode():
+            blobs = dict(net.stage_inputs(inputs))
+            for fn, spec in net._plan:
+                bottoms = [blobs[b] for b in spec.bottoms]
+                entry = net._entry(prepared, spec.name)
+                outs = fn(entry, bottoms)
+                per = clock(lambda: fn(entry, bottoms), args.iterations) / args.iterations
+                rows.append((spec.name, spec.type, per))
+                for top, val in zip(spec.tops, outs if isinstance(outs, (list, tuple)) else [outs]):
+                    blobs[top] = val
+        print(f"{'layer':40s} {'type':20s} {'ms':>8s}")
+        for name, typ, per in sorted(rows, key=lambda r: -r[2])[: args.top]:
+            print(f"{name:40s} {typ:20s} {per:8.3f}")
+        print(f"Sum of layers alone: {sum(r[2] for r in rows):.3f} ms "
+              f"(against {ms:.3f} ms for the whole forward)")
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(prog="deepcut_tpu_torch", description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -178,6 +314,26 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("-host_targets", action="store_true",
                    help="rasterize dense target maps on the host (the reference layout)")
     p.set_defaults(fn=train)
+
+    p = sub.add_parser("device_query", help="show the CUDA cards")
+    p.set_defaults(fn=device_query)
+
+    for verb, fn, what in (("test", test, "score a deploy prototxt on seeded random inputs"),
+                           ("time", time_cmd, "time a deploy prototxt's serving forward")):
+        p = sub.add_parser(verb, help=what)
+        p.add_argument("-model", required=True)
+        p.add_argument("-weights", default="", help="a .caffemodel (default: the fillers' init)")
+        p.add_argument("-iterations", type=int, default=50 if verb == "test" else 10)
+        p.add_argument("-fp32", action="store_true", help="f32 layers (TF32 off) instead of bf16")
+        p.add_argument("-device", default="cuda", help="torch device (cuda, cuda:1, cpu)")
+        p.set_defaults(fn=fn)
+        if verb == "time":
+            p.add_argument("-fold_bn", action="store_true",
+                           help="fold BatchNorm (+Scale) into the convs and cast the weights")
+            p.add_argument("-per_layer", action="store_true",
+                           help="also time each layer alone on the staged stream")
+            p.add_argument("-top", type=int, default=30, help="layers shown by -per_layer")
+            p.add_argument("-trace", default="", help="write a torch.profiler trace into this directory")
     args = parser.parse_args(argv)
     return args.fn(args)
 

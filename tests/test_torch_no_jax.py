@@ -6,8 +6,10 @@ A subprocess blocks `jax` and `deepcut_tpu` (``sys.modules[name] = None``
 makes every import of it raise), imports every module of
 `deepcut_tpu_torch`, runs one tiny
 CPU `estimate_pose` in bf16 and in int8 (calibrated on the frame), the demo
-CLI with and without --int8, and trains one CPU step through the port's
-`train` verb.
+CLI with and without --int8, trains one CPU step through the port's
+`train` verb, and drives the graph engine: a tiny DeeperCut prototxt
+through the serving chain with `quantize_int8`, the CLI's `time` and `test`
+verbs and a `Classifier` on examples/imagenet/caffenet_deploy.prototxt.
 """
 
 import os
@@ -58,6 +60,23 @@ assert not est.is_int8  # the demo quantized a private estimator
 from deepcut_tpu_torch.tools import cli
 assert cli.main(["train", "-solver", sys.argv[3], "-weights", sys.argv[4], "-resnet", "50",
                  "-device", "cpu", "-data_workers", "0"]) == 0
+
+from deepcut_tpu_torch.classifier import Classifier
+from deepcut_tpu_torch.core.graph import Net
+from deepcut_tpu_torch.models.prototxt import deepercut_deploy
+gnet = Net(deepercut_deploy(cfg, (1, 3, 40, 40)).to_proto(), device="cpu")
+gnet.fold_bn(); gnet.prune(["fc_pose", "prob"]); gnet.fuse_siblings()
+xg = np.random.RandomState(1).randn(1, 3, 40, 40).astype(np.float32)
+assert gnet.quantize_int8(data=xg) > 0
+gnet.cast_weights()
+outg = gnet.make_forward(["prob"])(gnet.params, {"data": torch.from_numpy(xg)})
+assert outg["prob"].shape == (1, 3, 5, 5) and bool(torch.isfinite(outg["prob"]).all())
+assert cli.main(["time", "-model", sys.argv[5], "-iterations", "1", "-device", "cpu"]) == 0
+assert cli.main(["test", "-model", sys.argv[5], "-iterations", "1", "-device", "cpu"]) == 0
+pred = Classifier(sys.argv[5], image_dims=(256, 256), raw_scale=255, device="cpu").predict(
+    [np.random.RandomState(2).rand(300, 280, 3).astype(np.float32)])
+assert pred.shape == (1, 8) and abs(float(pred.sum()) - 1) < 1e-4, pred
+assert int8_conv.im2col_launches == int8_conv.epilogue_launches == conv_epilogue.launches == 0
 assert not BLOCKED & {m.split(".")[0] for m, mod in sys.modules.items() if mod is not None}
 print("modules", len(names))
 """
@@ -71,10 +90,11 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT, str(tmp_path / "f.png"), str(tmp_path / "p.npz"),
-         str(solver), str(weights)],
+         str(solver), str(weights), str(REPO / "examples/imagenet/caffenet_deploy.prototxt")],
         env=env, capture_output=True, text=True, timeout=300, cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stdout + proc.stderr[-4000:]
-    assert int(proc.stdout.split("modules")[-1]) >= 24
+    assert int(proc.stdout.split("modules")[-1]) >= 35
+    assert "Average forward (make_forward)" in proc.stdout and "prob = " in proc.stdout
     assert "Iteration 0, loss = " in proc.stdout and (tmp_path / "snap" / "pose_iter_1.npz").is_file()
     pose = np.load(tmp_path / "p.npz")["pose"]
     assert pose.shape == (5, 3)

@@ -97,9 +97,16 @@ def test_pool_output_size_matches_jax_and_stem():
 
 def test_pool_rejects_geometry_torch_would_shrink():
     """stride > kernel with pad 0: Caffe keeps the last window, ceil-mode
-    torch drops it — raise rather than return the wrong size."""
-    with pytest.raises(ValueError, match="Caffe geometry"):
-        tpool.max_pool2d(torch.zeros(1, 1, 4, 4), kernel=1, stride=2)
+    torch drops it — the pool keeps Caffe's size (the last window over the
+    edge), as the JAX package; a pad above half the kernel, which torch's
+    pool refuses, too."""
+    x = np.random.RandomState(3).randn(1, 4, 5, 2).astype(np.float32)
+    for k, stride, pad in ((1, 2, 0), (2, 3, 0), (3, 2, 2)):
+        ref = np.asarray(jpool.max_pool2d(jnp.asarray(x), kernel=k, stride=stride, pad=pad))
+        got = _nhwc(tpool.max_pool2d(_nchw(x), kernel=k, stride=stride, pad=pad))
+        assert got.shape[1:3] == (tpool.pool_output_size(4, k, stride, pad),
+                                  tpool.pool_output_size(5, k, stride, pad))
+        np.testing.assert_array_equal(got, ref)
 
 
 @pytest.mark.parametrize("sf", [None, 0.999, 0.0])
