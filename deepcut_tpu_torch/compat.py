@@ -18,20 +18,24 @@ backed by the port's `core.graph.Net` on one device (the card unless
   device is the Net's, chosen at construction.
 - The net computes in f32 by default (``compute_dtype=None``, TF32 off),
   as the JAX package's facade does.
-- `backward`, `forward_backward_all`, `set_input_arrays` and the `Solver`
-  family belong to the engine's training slice of the port, and `save` to
-  ``.h5`` to its data slice: they raise `NotImplementedError`.
+- `backward` returns the input diffs and fills each blob's `.diff`
+  (injected top diffs as kwargs, partial start / end, `diffs=`);
+  `forward_backward_all`, `set_input_arrays` and `blob_loss_weights` as
+  pycaffe's. `Solver` / `get_solver` and the six typed solver classes run
+  `solver.solver.GraphSolver`, with a live `solver.net` and
+  `solver.test_nets`.
+- `save` to ``.h5`` belongs to the data slice of the port and raises
+  `NotImplementedError`.
 """
 
 from __future__ import annotations
 
+import warnings
 from collections import OrderedDict
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
-
-from deepcut_tpu_torch.core.graph import TRAINING_SLICE
 
 TRAIN = "TRAIN"
 TEST = "TEST"
@@ -104,11 +108,24 @@ class _ParamArray(np.ndarray):
 
 
 class Blob:
-    """pycaffe-style blob view: mutable `.data`, `.shape`, `reshape`."""
+    """pycaffe-style blob view: mutable `.data` and `.diff`, `.shape`, `reshape`."""
 
     def __init__(self, data: np.ndarray):
         arr = np.ascontiguousarray(data)
         self.data = arr if arr.flags.writeable else arr.copy()
+        self._diff: Optional[np.ndarray] = None
+
+    @property
+    def diff(self) -> np.ndarray:
+        """pycaffe's blob.diff: zeros until a backward fills it (the input
+        blobs always, other blobs when named in `Net.backward(diffs=...)`);
+        writable, to stage the seeds of a partial backward."""
+        cur = getattr(self, "_diff", None)  # param views skip __init__
+        if cur is None or cur.shape != self.data.shape:
+            self._diff = np.zeros_like(self.data)
+        elif not cur.flags.writeable:
+            self._diff = cur.copy()
+        return self._diff
 
     @property
     def shape(self):
@@ -160,6 +177,16 @@ class Net:
         for nm, sh in self._net.input_shapes.items():
             self.blobs[nm] = Blob(np.zeros(sh, np.float32))
 
+    @classmethod
+    def _from_graph(cls, graph_net) -> "Net":
+        """A view of an existing `core.graph.Net` (shared, not copied): the
+        Solver's `net` and `test_nets` see the live training params."""
+        obj = cls.__new__(cls)
+        obj._net = graph_net
+        obj.blobs = OrderedDict((nm, Blob(np.zeros(sh, np.float32)))
+                                for nm, sh in graph_net.input_shapes.items())
+        return obj
+
     # -- pycaffe surface ---------------------------------------------------
     @property
     def params(self) -> "OrderedDict[str, List[Blob]]":
@@ -205,7 +232,7 @@ class Net:
             outs = self._net.forward(start=start, end=end, **inputs)
             wanted = set(slice_specs[-1].tops) if end is not None else set(self.outputs)
         else:
-            inputs = {nm: self.blobs[nm].data for nm in self._net.input_names if nm in self.blobs}
+            inputs = self._staged_inputs()
             outs = self._net.forward(**inputs)
             wanted = set(self.outputs)
         for nm, val in outs.items():
@@ -224,6 +251,87 @@ class Net:
             for nm, val in outs.items():
                 collected.setdefault(nm, []).append(np.asarray(val))
         return {nm: np.concatenate(vals) for nm, vals in collected.items()}
+
+    def _staged_inputs(self) -> Dict[str, np.ndarray]:
+        """The input blobs' data, and the fill-once blobs' (constant
+        DummyData tops), which persist across forwards as the reference's
+        blob memory does."""
+        names = list(self._net.input_names) + sorted(self._net.sticky_top_names())
+        return {nm: self.blobs[nm].data for nm in names if nm in self.blobs}
+
+    def backward(self, diffs=None, start=None, end=None, **kwargs) -> Dict[str, np.ndarray]:
+        """pycaffe's _Net_backward (pycaffe.py:107-140): the diffs of the
+        input blobs, and of the blobs named in `diffs`, written into each
+        blob's `.diff` and returned. The input data are the staged blobs
+        (a forward's, or ``blobs[...].data[...] = x``).
+
+        kwargs are injected top diffs: their keys must be the net's outputs,
+        and the gradients are then of sum <output, diff> instead of the
+        loss. start / end: a partial backward by layer name, from layer
+        `start` (seeded from the staged ``blobs[top].diff`` of its tops) down
+        through `end`, whose tops' diffs are returned too."""
+        inputs = self._staged_inputs()
+        cot = None
+        if kwargs:
+            if set(kwargs) != set(self.outputs):
+                raise Exception("Top diff arguments do not match net outputs.")
+            if start is None:
+                cot = {nm: np.asarray(v, np.float32) for nm, v in kwargs.items()}
+        specs = {s.name: s for s in self._net.layer_specs}
+        if start is not None:
+            if start not in specs:
+                raise KeyError(f"unknown start layer {start!r}")
+            cot = {}
+            for top in specs[start].tops:
+                blob = self.blobs.get(top)
+                if blob is None or blob._diff is None:
+                    raise ValueError(f"backward(start={start!r}): no staged diff for top blob "
+                                     f"{top!r}; set net.blobs[{top!r}].diff[...] first (the "
+                                     "reference reads that buffer)")
+                cot[top] = np.asarray(blob.diff, np.float32)
+        if end is not None:
+            if end not in specs:
+                raise KeyError(f"unknown end layer {end!r}")
+            diffs = list(diffs or []) + [t for t in specs[end].tops if t not in (diffs or [])]
+        grads = self._net.backward(diffs=diffs, cotangents=cot, start=start, end=end, **inputs)
+        for nm, g in grads.items():
+            if nm in self.blobs:
+                if g.shape != tuple(self.blobs[nm].data.shape):
+                    # a Filter net: the forward truly shrinks the batch, the
+                    # backward keeps the static shapes
+                    warnings.warn(f"backward: gradient for blob '{nm}' has shape {g.shape} but "
+                                  f"the blob holds {tuple(self.blobs[nm].data.shape)} "
+                                  "(dynamic-Filter forward vs static backward); Blob.diff stays "
+                                  "zeros for this blob", stacklevel=2)
+                    continue
+                self.blobs[nm]._diff = g
+        return grads
+
+    def forward_backward_all(self, blobs=None, diffs=None, **kwargs):
+        """pycaffe's _Net_forward_backward_all (pycaffe.py:170-233): the
+        batched forward and backward, in chunks of the input blob's batch;
+        -> ({blob: outputs}, {blob: diffs of the inputs and of `diffs`})."""
+        batch = self.blobs[self.inputs[0]].data.shape[0] if self.inputs else 1
+        fwd_out = self.forward_all(blobs=blobs, **kwargs)
+        num = next(iter(kwargs.values())).shape[0]
+        grads: Dict[str, List[np.ndarray]] = {}
+        for i in range(0, num, batch):
+            chunk = {k: np.asarray(v[i:i + batch], np.float32) for k, v in kwargs.items()}
+            for nm, val in self._net.backward(diffs=diffs, **chunk).items():
+                grads.setdefault(nm, []).append(val)
+        return fwd_out, {nm: np.concatenate(vals) for nm, vals in grads.items()}
+
+    def set_input_arrays(self, data: np.ndarray, labels: np.ndarray) -> None:
+        """Feed the MemoryData layer (pycaffe's _Net_set_input_arrays)."""
+        self._net.set_input_arrays(data, labels)
+
+    @property
+    def blob_loss_weights(self) -> "OrderedDict[str, float]":
+        """pycaffe's net.blob_loss_weights: each blob's loss weight (0 for
+        the inputs)."""
+        out: "OrderedDict[str, float]" = OrderedDict((nm, 0.0) for nm in self._net.input_names)
+        out.update(self._net.blob_loss_weights())
+        return out
 
     def copy_from(self, weights_path: str) -> None:
         self._net.load_weights(weights_path)
@@ -278,25 +386,81 @@ class Net:
         """Share parameters with another net by layer name
         (Net::ShareTrainedLayersWith, net.cpp:782-803): matching layers hold
         the same tensors afterwards."""
+        self._net.materialize_params()
+        other._net.materialize_params()
         src = other._net.params
         for name in list(self._net.params):
             if name in src:
                 self._net.params[name] = src[name]
 
-    # -- the training slice -------------------------------------------------
-    def backward(self, *args, **kwargs):
-        raise NotImplementedError(f"Net.backward {TRAINING_SLICE}")
 
-    def forward_backward_all(self, *args, **kwargs):
-        raise NotImplementedError(f"Net.forward_backward_all {TRAINING_SLICE}")
+class Solver:
+    """pycaffe's Solver (`caffe.get_solver`, `caffe.SGDSolver`, ...): `.net`
+    (a live view of the training net), `.test_nets`, `.step(n)`,
+    `.solve()`, `.iter`, `.smoothed_loss`, `.snapshot()`, `.restore(path)`,
+    backed by `solver.solver.GraphSolver` on `device` (the card unless
+    ``device="cpu"``). A solver whose net has a PoseData layer trains
+    through `solver.solver.PoseSolver` or the CLI instead."""
 
-    def set_input_arrays(self, *args, **kwargs):
-        raise NotImplementedError(f"Net.set_input_arrays {TRAINING_SLICE}")
+    def __init__(self, path: str, solver_type: Optional[str] = None, *, device="cuda"):
+        import dataclasses
+
+        from deepcut_tpu_torch.solver.solver import GraphSolver, SolverParams
+
+        sp = SolverParams.from_prototxt(path)
+        if solver_type is not None:
+            sp.config = dataclasses.replace(sp.config, solver_type=solver_type)
+        self._solver = GraphSolver(sp, handle_signals=False, device=device)
+        self.net = Net._from_graph(self._solver.net)
+        self._test_net_views: Optional[List[Net]] = None
+
+    @property
+    def test_nets(self) -> List[Net]:
+        """Stable views of the test nets, re-pointed at the live training
+        params on each access (Solver::Test's ShareTrainedLayersWith)."""
+        nets = self._solver._init_test_nets()
+        for tnet, _ in nets:
+            self._solver._share_trained_layers(tnet)
+        if self._test_net_views is None:
+            self._test_net_views = [Net._from_graph(t) for t, _ in nets]
+        return self._test_net_views
+
+    @property
+    def smoothed_loss(self) -> float:
+        return self._solver.smoothed_loss
+
+    @property
+    def iter(self) -> int:
+        return self._solver.iter
+
+    def step(self, iters: int) -> None:
+        self._solver.step(iters)
+
+    def solve(self) -> None:
+        self._solver.solve()
+
+    def snapshot(self) -> str:
+        return self._solver.snapshot()
+
+    def restore(self, state_path: str) -> None:
+        self._solver.restore(state_path)
 
 
-def _solver(*args, **kwargs):
-    raise NotImplementedError(f"the Solver family {TRAINING_SLICE}")
+def get_solver(path: str, *, device="cuda") -> Solver:
+    """pycaffe's caffe.get_solver: the solver the prototxt's `type:` names."""
+    return Solver(path, device=device)
 
 
-get_solver = Solver = SGDSolver = NesterovSolver = AdaGradSolver = _solver
-RMSPropSolver = AdaDeltaSolver = AdamSolver = _solver
+def _typed(name: str):
+    def __init__(self, path: str, *, device="cuda"):
+        Solver.__init__(self, path, solver_type=name, device=device)
+    return type(f"{name}Solver", (Solver,), {"__init__": __init__,
+                                            "__doc__": f"pycaffe's {name}Solver."})
+
+
+SGDSolver = _typed("SGD")
+NesterovSolver = _typed("Nesterov")
+AdaGradSolver = _typed("AdaGrad")
+RMSPropSolver = _typed("RMSProp")
+AdaDeltaSolver = _typed("AdaDelta")
+AdamSolver = _typed("Adam")

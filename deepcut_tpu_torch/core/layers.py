@@ -24,20 +24,36 @@ held in f32 (cuDNN with TF32 allowed: exact products, f32 sums; a matmul
 for InnerProduct) and `ops.conv_epilogue` adds the f32 bias and rounds once
 to bf16, as XLA's bf16 convolution with an f32 accumulator and bias does.
 
-The loss layers, Accuracy, Python and DummyData belong to the engine's
-training slice and raise `NotImplementedError`, as unknown types do.
+Training adds the loss layers, Accuracy, Python and DummyData, and the
+TRAIN forms of three layers, which mark their functions for the executor
+(`core.graph.Net._execute`), as the JAX package's do:
+- ``fn.needs_rng``: Dropout, STOCHASTIC pooling and a DummyData with a
+  random filler draw from a `torch.Generator` the executor passes as
+  ``gen=`` (seeded from the net's seed, the iteration and the layer's
+  index); without one they are deterministic (Dropout the identity,
+  STOCHASTIC its TEST form, random DummyData tops zeros);
+- ``fn.bn_train``: BatchNorm with batch statistics; the executor calls
+  `ops.norm.batch_norm_train` and collects the moving-average updates;
+- ``fn.sticky_tops``: DummyData's constant tops, filled once: a value
+  handed in as an input wins over the refill;
+- ``fn.device_source``: a layer without bottoms (DummyData) is passed the
+  net's ``device=``.
+Unknown types raise `NotImplementedError`.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deepcut_tpu_torch.core import fillers
 from deepcut_tpu_torch.ops import activations as act_ops
 from deepcut_tpu_torch.ops import eltwise as elt_ops
 from deepcut_tpu_torch.ops import linear as lin_ops
+from deepcut_tpu_torch.ops import losses as loss_ops
 from deepcut_tpu_torch.ops import norm as norm_ops
 from deepcut_tpu_torch.ops import pool as pool_ops
 from deepcut_tpu_torch.ops.conv import conv_output_size, exact_conv, full_f32_conv
@@ -45,18 +61,6 @@ from deepcut_tpu_torch.ops.conv_epilogue import conv_epilogue
 from deepcut_tpu_torch.proto.text_format import PbNode
 
 BF16 = torch.bfloat16
-
-# the training slice's layer types: built by the JAX package, not ported yet
-TRAINING_SLICE_TYPES = (
-    "SoftmaxWithLoss", "SoftmaxWithLossVec", "SmoothL1Loss", "SigmoidCrossEntropyLoss",
-    "EuclideanLoss", "HingeLoss", "ContrastiveLoss", "InfogainLoss",
-    "MultinomialLogisticLoss", "Accuracy", "Python", "DummyData")
-
-
-def not_ported(spec, what: str = "the engine's training slice") -> NotImplementedError:
-    return NotImplementedError(
-        f"layer type {spec.type!r} (layer {spec.name!r}) belongs to {what} of the "
-        "port, which is not ported yet")
 
 
 # -- config extraction ------------------------------------------------------
@@ -99,8 +103,6 @@ def register(name: str, param_spec: Optional[Callable] = None):
 
 
 def build(spec, phase: str, compute_dtype) -> Optional[Callable]:
-    if spec.type in TRAINING_SLICE_TYPES:
-        raise not_ported(spec)
     builder = _BUILDERS.get(spec.type)
     if builder is None:
         raise NotImplementedError(
@@ -214,10 +216,17 @@ def _bn_param_spec(spec, bottom_shapes):
 def _batchnorm(spec, phase, compute_dtype):
     bp = spec.param("batch_norm_param")
     eps = bp.get_float("eps", 1e-5)
+
+    def fn(p, b):
+        return norm_ops.batch_norm_inference(b[0], p["mean"], p["var"], p.get("scale_factor"),
+                                             eps=eps)
     if phase == "TRAIN" and not bp.get_bool("use_global_stats", False):
-        raise not_ported(spec, "the engine's training slice (batch statistics)")
-    return lambda p, b: norm_ops.batch_norm_inference(
-        b[0], p["mean"], p["var"], p.get("scale_factor"), eps=eps)
+        # batch statistics: the executor runs ops.norm.batch_norm_train and
+        # collects the moving averages (batch_norm_layer.cpp TRAIN)
+        fn.bn_train = True
+        fn.bn_eps = eps
+        fn.bn_momentum = bp.get_float("moving_average_fraction", 0.999)
+    return fn
 
 
 def _scale_param_spec(spec, bottom_shapes):
@@ -370,9 +379,14 @@ def _threshold(spec, phase, compute_dtype):
 @register("Dropout")
 def _dropout(spec, phase, compute_dtype):
     # TEST: the identity (Caffe scales the kept units at train time)
-    if phase != "TEST" and spec.param("dropout_param").get_float("dropout_ratio", 0.5) > 0:
-        raise not_ported(spec, "the engine's training slice (dropout masks)")
-    return lambda p, b: b[0]
+    if phase == "TEST":
+        return lambda p, b: b[0]
+    ratio = spec.param("dropout_param").get_float("dropout_ratio", 0.5)
+
+    def fn(p, b, gen=None):
+        return act_ops.dropout(b[0], gen, ratio=ratio)
+    fn.needs_rng = True
+    return fn
 
 
 # Pooling -------------------------------------------------------------------
@@ -395,9 +409,15 @@ def _pooling(spec, phase, compute_dtype):
     if method == "MAX":
         return lambda p, b: pool_ops.max_pool2d(b[0], kernel=kernel, stride=stride, pad=pad)
     if method == "STOCHASTIC":
-        if phase == "TRAIN":
-            raise not_ported(spec, "the engine's training slice (stochastic sampling)")
-        return lambda p, b: pool_ops.stochastic_pool2d_test(b[0], kernel=kernel, stride=stride)
+        if phase != "TRAIN":
+            return lambda p, b: pool_ops.stochastic_pool2d_test(b[0], kernel=kernel, stride=stride)
+
+        def fn(p, b, gen=None):
+            if gen is None:
+                return pool_ops.stochastic_pool2d_test(b[0], kernel=kernel, stride=stride)
+            return pool_ops.stochastic_pool2d_train(b[0], gen, kernel=kernel, stride=stride)
+        fn.needs_rng = True
+        return fn
     return lambda p, b: pool_ops.avg_pool2d(b[0], kernel=kernel, stride=stride, pad=pad)
 
 
@@ -621,3 +641,317 @@ def _argmax(spec, phase, compute_dtype):
     axis = ap.get_int("axis", None)
     cfg = dict(top_k=ap.get_int("top_k", 1), out_max_val=ap.get_bool("out_max_val", False))
     return lambda p, b: lin_ops.argmax_op(b[0], axis=axis, **cfg)
+
+
+# Losses --------------------------------------------------------------------
+
+
+def _label_squeeze(t: torch.Tensor) -> torch.Tensor:
+    """A label blob's channel axis of 1 dropped: (N, 1, H, W) -> (N, H, W)."""
+    return t[:, 0] if t.dim() == 4 and t.shape[1] == 1 else t
+
+
+def _class_last(x: torch.Tensor, axis: int) -> torch.Tensor:
+    return x.movedim(axis % x.dim(), -1) if x.dim() > 1 else x
+
+
+@register("SoftmaxWithLoss")
+def _softmax_with_loss(spec, phase, compute_dtype):
+    lp = spec.param("loss_param")
+    ignore = lp.get_int("ignore_label") if lp.has("ignore_label") else None
+    normalization = lp.get_str("normalization", "VALID")
+    if lp.has("normalize") and not lp.get_bool("normalize"):
+        normalization = "BATCH_SIZE"
+    axis = spec.param("softmax_param").get_int("axis", 1)
+
+    def fn(p, bottoms):
+        scores = _class_last(bottoms[0], axis)
+        lab = _label_squeeze(bottoms[1])
+        if lab.numel() == scores[..., 0].numel() and lab.shape != scores.shape[:-1]:
+            lab = lab.reshape(scores.shape[:-1])  # (N, 1, 1, 1)-style label blobs
+        loss = loss_ops.softmax_with_loss(scores, lab, ignore_label=ignore,
+                                          normalization=normalization)
+        if len(spec.tops) > 1:  # the optional second top shares the softmax (prob_)
+            return [loss, torch.softmax(bottoms[0].float(), dim=axis)]
+        return loss
+    return fn
+
+
+@register("SoftmaxWithLossVec")
+def _softmax_with_loss_vec(spec, phase, compute_dtype):
+    vp = spec.param("softmax_with_loss_vec_param")
+    cross_entropy = vp.get_bool("cross_entropy", False)
+    no_softmax = vp.get_bool("no_softmax", False)
+    normalize = spec.param("loss_param").get_bool("normalize", True)
+
+    def fn(p, bottoms):
+        w = bottoms[2] if len(bottoms) > 2 else None
+        loss = loss_ops.softmax_loss_vec(bottoms[0], bottoms[1], w, cross_entropy=cross_entropy,
+                                         no_softmax=no_softmax, normalize=normalize)
+        if len(spec.tops) > 1:
+            # top[1] shares prob_ (softmax_loss_vec_layer.cpp:149-151)
+            x = bottoms[0]
+            prob = (torch.sigmoid(x) if cross_entropy else x if no_softmax
+                    else torch.softmax(x, dim=1))
+            return [loss, prob]
+        return loss
+    return fn
+
+
+@register("SmoothL1Loss")
+def _smooth_l1_loss(spec, phase, compute_dtype):
+    return lambda p, b: loss_ops.smooth_l1_loss(b[0], b[1], b[2] if len(b) > 2 else None)
+
+
+@register("SigmoidCrossEntropyLoss")
+def _sigmoid_ce_loss(spec, phase, compute_dtype):
+    return lambda p, b: loss_ops.sigmoid_cross_entropy_loss(b[0], b[1])
+
+
+@register("EuclideanLoss")
+def _euclidean_loss(spec, phase, compute_dtype):
+    return lambda p, b: loss_ops.euclidean_loss(b[0], b[1])
+
+
+@register("HingeLoss")
+def _hinge_loss(spec, phase, compute_dtype):
+    norm = spec.param("hinge_loss_param").get_str("norm", "L1")
+    return lambda p, b: loss_ops.hinge_loss(b[0], _label_squeeze(b[1]), norm=norm)
+
+
+@register("ContrastiveLoss")
+def _contrastive_loss(spec, phase, compute_dtype):
+    cp = spec.param("contrastive_loss_param")
+    cfg = dict(margin=cp.get_float("margin", 1.0),
+               legacy_version=cp.get_bool("legacy_version", False))
+    return lambda p, b: loss_ops.contrastive_loss(b[0], b[1], b[2], **cfg)
+
+
+@register("InfogainLoss")
+def _infogain_loss(spec, phase, compute_dtype):
+    # two bottoms: H from infogain_loss_param.source, a BlobProto file read
+    # once at setup (infogain_loss_layer.cpp LayerSetUp); three: H is bottom 2
+    h_static = None
+    src = spec.param("infogain_loss_param").get_str("source", "")
+    if src:
+        from deepcut_tpu_torch.io import blobproto_bytes_to_array
+
+        with open(src, "rb") as f:
+            h_static = torch.from_numpy(
+                np.squeeze(blobproto_bytes_to_array(f.read())).astype(np.float32))
+
+    def fn(p, bottoms):
+        if len(bottoms) > 2:
+            h = bottoms[2]
+        elif h_static is not None:
+            h = h_static.to(bottoms[0].device)
+        else:
+            raise ValueError("InfogainLoss needs a third bottom or infogain_loss_param.source "
+                             "(infogain_loss_layer.cpp)")
+        return loss_ops.infogain_loss(bottoms[0], _label_squeeze(bottoms[1]), h)
+    return fn
+
+
+@register("MultinomialLogisticLoss")
+def _mll(spec, phase, compute_dtype):
+    def fn(p, b):
+        prob = _class_last(b[0], 1)
+        return loss_ops.multinomial_logistic_loss(prob, _label_squeeze(b[1]).reshape(prob.shape[:-1]))
+    return fn
+
+
+@register("Accuracy")
+def _accuracy(spec, phase, compute_dtype):
+    ap = spec.param("accuracy_param")
+    lp = spec.param("loss_param")
+    # ignore_label lives in AccuracyParameter (accuracy_layer.cpp:16-19);
+    # loss_param is read as a lenient fallback, as the JAX package does
+    ignore = (ap.get_int("ignore_label") if ap.has("ignore_label")
+              else lp.get_int("ignore_label") if lp.has("ignore_label") else None)
+    axis = ap.get_int("axis", 1)
+    cfg = dict(top_k=ap.get_int("top_k", 1), ignore_label=ignore, per_class=len(spec.tops) > 1)
+
+    def fn(p, b):
+        scores = _class_last(b[0], axis)
+        out = loss_ops.accuracy(scores, _label_squeeze(b[1]).reshape(scores.shape[:-1]), **cfg)
+        return list(out) if cfg["per_class"] else out
+    return fn
+
+
+# Python layers -------------------------------------------------------------
+
+_PYTHON_REGISTRY: Dict[str, Any] = {}
+# keyed by id(spec), holding the spec itself: a collected spec's id could be
+# reused by a new one and hand it a stale instance of another class
+_PYTHON_INSTANCES: Dict[int, Tuple[Any, Any]] = {}
+
+
+def register_python_layer(name: str, cls_or_fn) -> None:
+    """Register a user layer class (or plain function) under its `layer:`
+    name, for code that cannot be imported by module path."""
+    _PYTHON_REGISTRY[name] = cls_or_fn
+
+
+def _python_instance(spec):
+    """One layer instance per LayerSpec; its setup runs once (LayerSetUp)."""
+    key = id(spec)
+    if key in _PYTHON_INSTANCES:
+        return _PYTHON_INSTANCES[key][1]
+    pp = spec.param("python_param")
+    layer = pp.get_str("layer", "")
+    obj = _PYTHON_REGISTRY.get(layer)
+    if obj is None:
+        import importlib
+
+        module = pp.get_str("module", "")
+        if not module:
+            raise ValueError(f"Python layer {spec.name!r}: layer {layer!r} is neither registered "
+                             "via register_python_layer nor qualified with python_param.module")
+        obj = getattr(importlib.import_module(module), layer)
+    inst = obj() if isinstance(obj, type) else obj
+    try:
+        inst.param_str = pp.get_str("param_str", "")
+    except AttributeError:
+        pass
+    if hasattr(inst, "setup"):
+        inst.setup(pp.get_str("param_str", ""))
+    _PYTHON_INSTANCES[key] = (spec, inst)
+    return inst
+
+
+def _python_param_spec(spec, bottom_shapes):
+    inst = _python_instance(spec)
+    if hasattr(inst, "param_spec"):
+        return [(k, tuple(s), f if f is not None else PbNode())
+                for k, s, f in inst.param_spec(bottom_shapes)]
+    return []
+
+
+class _PythonBackward(torch.autograd.Function):
+    """A Python layer's own backward as the layer's VJP over its params and
+    bottoms (the JAX package's custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, run, backward, keys, n_bottoms, *flat):
+        params = dict(zip(keys, flat[:len(keys)]))
+        bottoms = flat[len(keys):]
+        ctx.backward, ctx.keys, ctx.n_bottoms = backward, keys, n_bottoms
+        ctx.save_for_backward(*flat)
+        out = run(params, bottoms)
+        ctx.multi = isinstance(out, (tuple, list))
+        return tuple(out) if ctx.multi else out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        flat = ctx.saved_tensors
+        params = dict(zip(ctx.keys, flat[:len(ctx.keys)]))
+        bottoms = flat[len(ctx.keys):]
+        got = ctx.backward(grads if ctx.multi else grads[0], bottoms, params)
+        param_grads = None
+        if isinstance(got, tuple) and got and isinstance(got[-1], dict):
+            param_grads, got = got[-1], got[:-1]
+        if not isinstance(got, (tuple, list)):
+            got = (got,)
+        got = list(got) + [None] * (ctx.n_bottoms - len(got))
+        # without returned param grads the params get zeros under the custom rule
+        pg = [param_grads.get(k) if param_grads else None for k in ctx.keys]
+        pg = [torch.zeros_like(v) if g is None else g for g, v in zip(pg, flat[:len(ctx.keys)])]
+        return (None, None, None, None, *pg, *got[:ctx.n_bottoms])
+
+
+@register("Python", _python_param_spec)
+def _python_layer(spec, phase, compute_dtype):
+    """User-defined layer (python/caffe/_caffe.cpp:272-291, layer_factory's
+    WITH_PYTHON_LAYER), the port's contract (the JAX package's, on torch
+    tensors):
+      - ``forward(self, *bottoms) -> tensor | tuple``, with torch ops on the
+        bottoms' device (autograd differentiates it unless a backward is
+        given);
+      - optional ``setup(self, param_str)``, run once at build;
+      - optional ``backward(self, grad_top, *bottoms) -> grad_bottoms``,
+        installed as a `torch.autograd.Function`. It may take a ``params``
+        keyword and return the param gradients as a trailing dict; without
+        it the params get zero gradients under the custom rule;
+      - optional ``param_spec(self, bottom_shapes) -> [(key, shape,
+        filler_node | None)]`` declares learnable blobs (shapes NCHW),
+        passed to forward as a ``params`` keyword.
+    A plain function registered with `register_python_layer` works too. A
+    layer written with jax.numpy does not run here: the port imports no jax.
+    """
+    import inspect
+
+    inst = _python_instance(spec)
+    try:
+        inst.phase = phase
+    except AttributeError:
+        pass
+    fwd = inst.forward if hasattr(inst, "forward") else inst
+    wants_params = "params" in inspect.signature(fwd).parameters
+
+    def run(p, bottoms):
+        return fwd(*bottoms, params=p) if wants_params else fwd(*bottoms)
+
+    if not (hasattr(inst, "backward") and callable(inst.backward)):
+        return lambda p, b: run(p or {}, b)
+    bwd_wants_params = "params" in inspect.signature(inst.backward).parameters
+
+    def backward(g, bottoms, p):
+        return (inst.backward(g, *bottoms, params=p) if bwd_wants_params
+                else inst.backward(g, *bottoms))
+
+    def fn(p, bottoms):
+        keys = tuple((p or {}).keys())
+        return _PythonBackward.apply(run, backward, keys, len(bottoms),
+                                     *[p[k] for k in keys], *bottoms)
+    return fn
+
+
+# Data ----------------------------------------------------------------------
+
+
+@register("DummyData")
+def _dummy_data(spec, phase, compute_dtype):
+    dp = spec.param("dummy_data_param")
+    shapes = [tuple(int(d) for d in sh.get_list("dim")) for sh in dp.get_list("shape")]
+    if not shapes:
+        # the legacy four-field form (dummy_data_layer.cpp): repeated num /
+        # channels / height / width, one value for all tops or one per top
+        legacy = [dp.get_list(k) for k in ("num", "channels", "height", "width")]
+        for i in range(max((len(v) for v in legacy), default=0)):
+            shapes.append(tuple(int(v[min(i, len(v) - 1)]) if v else 1 for v in legacy))
+    n_top = len(spec.tops)
+    while len(shapes) < n_top:
+        shapes.append(shapes[-1] if shapes else (1,))
+    fills = dp.get_list("data_filler")
+
+    def filler(i):
+        return fills[min(i, len(fills) - 1)] if fills else PbNode()
+
+    def fn(p, bottoms, gen=None, device=None):
+        outs = []
+        for i in range(n_top):
+            f, shape = filler(i), shapes[i]
+            ftype = f.get_str("type", "constant")
+            if ftype == "constant" or gen is None:
+                # a random filler gives zeros without a generator (a plain
+                # forward outside a train step), as the JAX package's
+                val = f.get_float("value", 0.0) if ftype == "constant" else 0.0
+                outs.append(torch.full(shape, val, dtype=torch.float32, device=device))
+            elif ftype == "gaussian":
+                # dummy_data_layer.cpp refills non-constant tops every forward
+                outs.append(f.get_float("mean", 0.0) + f.get_float("std", 1.0) * torch.randn(
+                    shape, generator=gen, device=gen.device))
+            elif ftype == "uniform":
+                lo, hi = f.get_float("min", 0.0), f.get_float("max", 1.0)
+                outs.append(lo + (hi - lo) * torch.rand(shape, generator=gen, device=gen.device))
+            else:
+                cpu = torch.Generator().manual_seed(gen.initial_seed() + i)
+                outs.append(fillers.fill(f, cpu, shape).to(gen.device))
+        return outs
+    fn.needs_rng = any(filler(i).get_str("type", "constant") != "constant" for i in range(n_top))
+    fn.device_source = True
+    # constant tops are filled once (LayerSetUp) and left alone in Forward:
+    # a staged value (pycaffe's blobs['label'].data[...] = x) persists
+    fn.sticky_tops = frozenset(i for i in range(n_top)
+                               if filler(i).get_str("type", "constant") == "constant")
+    return fn

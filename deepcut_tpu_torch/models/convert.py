@@ -139,3 +139,22 @@ def graph_params_to_numpy(params: Mapping[str, Mapping[str, torch.Tensor]],
             conv[k] = np.array(_graph_layout(t, k, a, False), order="C")
         out[name] = conv
     return out
+
+
+def graph_state_to_numpy(state: Mapping[str, object], layer_types: Mapping[str, str]
+                         ) -> Dict[str, object]:
+    """A graph solver's state (``iter`` and its per-blob trees: SGD's
+    ``history``, AdaDelta's ``history`` and ``update_sq``, Adam's ``m`` and
+    ``v``) -> numpy in the JAX package's layouts, each tree as
+    `graph_params_to_numpy`, ``iter`` an int32 scalar."""
+    return {k: (np.asarray(int(v), np.int32) if k == "iter" else graph_params_to_numpy(v, layer_types))
+            for k, v in state.items()}
+
+
+def graph_state_from_numpy(state: Mapping[str, object], layer_types: Mapping[str, str]
+                           ) -> Dict[str, object]:
+    """The inverse of `graph_state_to_numpy`: the JAX package's state trees
+    (numpy, or anything `np.asarray` takes) -> the port's layouts as CPU
+    tensors, ``iter`` an int."""
+    return {k: (int(np.asarray(v)) if k == "iter" else graph_params_from_numpy(v, layer_types))
+            for k, v in state.items()}

@@ -11,6 +11,8 @@ dim 1 (Caffe's axis; the JAX package broadcasts over its last, NHWC axis).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -86,3 +88,14 @@ def power_op(x: torch.Tensor, *, power: float = 1.0, scale: float = 1.0,
 def threshold(x: torch.Tensor, *, t: float = 0.0) -> torch.Tensor:
     """Threshold layer: y = 1[x > t] (threshold_layer.cpp)."""
     return (x > t).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, gen: Optional[torch.Generator], *, ratio: float = 0.5) -> torch.Tensor:
+    """Dropout with Caffe's inverted scaling (dropout_layer.cpp): each unit
+    kept with probability 1 - ratio, drawn from `gen` (a generator on x's
+    device), and divided by 1 - ratio; the identity without a generator
+    or at ratio 0 (TEST)."""
+    if gen is None or ratio == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < (1.0 - ratio)
+    return torch.where(keep, x / (1.0 - ratio), torch.zeros((), dtype=x.dtype, device=x.device))

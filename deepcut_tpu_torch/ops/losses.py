@@ -1,8 +1,9 @@
-"""The fork's two pose losses, with its forward AND its backward, in NCHW.
+"""The losses and the Accuracy of the graph engine and the fork, in NCHW.
 
-Counterpart of `deepcut_tpu.ops.losses` (`smooth_l1_loss`,
-`softmax_loss_vec`). Neither backward is the autograd of its forward, so
-each is a `torch.autograd.Function`:
+Counterpart of `deepcut_tpu.ops.losses` on one device (its psum'ed
+variants are multi-GPU work). The fork's two pose losses, `smooth_l1_loss`
+and `softmax_loss_vec`, have a backward that is not the autograd of their
+forward, so each is a `torch.autograd.Function`:
 
 - both clamp the backward normaliser at ``max(., 100)``
   (softmax_loss_vec_layer.cpp:225-230, smooth_L1_loss_layer.cu:86);
@@ -14,6 +15,11 @@ each is a `torch.autograd.Function`:
 A `gradcheck` therefore fails by design; the tests hold the cotangents
 against `jax.vjp` of the JAX package instead. Tensors are NCHW: the
 reference's channel axis 1, which the JAX package moved to -1.
+
+Upstream Caffe's losses (SoftmaxWithLoss, SigmoidCrossEntropy, Euclidean,
+Hinge, Contrastive, Infogain, MultinomialLogistic) and `accuracy` follow
+the JAX package's single-device forms, whose gradients are autodiff's:
+here autograd's.
 """
 
 from __future__ import annotations
@@ -129,3 +135,119 @@ def softmax_loss_vec(scores: torch.Tensor, labels: torch.Tensor,
     Forward normaliser: max(count, 100) if normalize else N;
     backward normaliser: max(channel-0 weight sum or count, 100)."""
     return _SoftmaxLossVec.apply(scores, labels, weights, cross_entropy, no_softmax, normalize)
+
+
+# -- upstream Caffe's losses (autograd backward, as the JAX package's) ---------
+def _nan_if(bad: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return torch.where(bad, torch.full_like(v, float("nan")), v)
+
+
+def softmax_with_loss(scores: torch.Tensor, labels: torch.Tensor, *,
+                      ignore_label: Optional[int] = None,
+                      normalization: str = "VALID") -> torch.Tensor:
+    """SoftmaxWithLoss (softmax_loss_layer.cpp) over the LAST axis of
+    `scores` (the layer moves Caffe's softmax axis there); labels: the
+    scores' leading shape, integer-valued.
+
+    normalization: VALID (the count of labels not equal to ignore_label,
+    at least 1), BATCH_SIZE (scores.shape[0]), FULL (every label) or NONE.
+    A live label outside [0, C) makes the loss NaN, as the JAX package
+    poisons it (Caffe CHECKs the range). The gradient is autograd's,
+    ``(softmax - onehot) * live / denom``, as the JAX package's."""
+    x = scores.float()
+    logp = torch.log_softmax(x, dim=-1)
+    lab = labels.to(torch.int64)
+    c = x.shape[-1]
+    picked = torch.gather(logp, -1, lab.clamp(0, c - 1).unsqueeze(-1))[..., 0]
+    live = lab != ignore_label if ignore_label is not None else torch.ones_like(lab, dtype=torch.bool)
+    picked = _nan_if((live & ((lab < 0) | (lab >= c))).any(), picked)
+    loss_sum = -torch.where(live, picked, torch.zeros_like(picked)).sum()
+    outer = scores.shape[0]
+    if normalization == "VALID":
+        denom = torch.clamp(live.sum().float(), min=1.0)
+    elif normalization == "BATCH_SIZE":
+        denom = float(outer)
+    elif normalization == "FULL":
+        denom = float(lab.numel())
+    else:
+        denom = 1.0
+    return loss_sum / denom
+
+
+def sigmoid_cross_entropy_loss(scores: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """SigmoidCrossEntropyLoss: the overflow-safe elementwise CE summed,
+    over the batch size (sigmoid_cross_entropy_loss_layer.cpp)."""
+    return _sigmoid_ce_elem(scores.float(), targets.float()).sum() / scores.shape[0]
+
+
+def euclidean_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """EuclideanLoss: 0.5 * sum((a - b)^2) / N (euclidean_loss_layer.cpp)."""
+    d = a.float() - b.float()
+    return 0.5 * (d * d).sum() / a.shape[0]
+
+
+def hinge_loss(scores: torch.Tensor, labels: torch.Tensor, *, norm: str = "L1") -> torch.Tensor:
+    """HingeLoss (hinge_loss_layer.cpp): one-vs-all margins over the
+    scores flattened per item in C, H, W order; L1 sums them, L2 their
+    squares, over N."""
+    x = scores.float().reshape(scores.shape[0], -1)
+    n, c = x.shape
+    onehot = torch.nn.functional.one_hot(labels.to(torch.int64).reshape(-1), c) > 0
+    margins = torch.clamp(1.0 + torch.where(onehot, -1.0, 1.0) * x, min=0.0)
+    return ((margins * margins) if norm == "L2" else margins).sum() / n
+
+
+def contrastive_loss(a: torch.Tensor, b: torch.Tensor, y: torch.Tensor, *,
+                     margin: float = 1.0, legacy_version: bool = False) -> torch.Tensor:
+    """ContrastiveLoss (contrastive_loss_layer.cpp): similar pairs (y = 1)
+    pay the squared distance, dissimilar ones max(margin - d, 0)^2
+    (legacy: max(margin - d^2, 0)), summed over 2N."""
+    d = a.float().reshape(a.shape[0], -1) - b.float().reshape(b.shape[0], -1)
+    dist_sq = (d * d).sum(dim=1)
+    yf = y.float().reshape(-1)
+    if legacy_version:
+        neg = torch.clamp(margin - dist_sq, min=0.0)
+    else:
+        neg = torch.square(torch.clamp(margin - torch.sqrt(dist_sq + 1e-12), min=0.0))
+    return (yf * dist_sq + (1 - yf) * neg).sum() / (2.0 * a.shape[0])
+
+
+def infogain_loss(prob: torch.Tensor, labels: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
+    """InfogainLoss: -sum_k H[label, k] log(max(prob_k, 1e-20)) / N. The
+    bottom holds PROBABILITIES (a Softmax before it), not logits
+    (infogain_loss_layer.cpp:59-67)."""
+    p = torch.clamp(prob.float().reshape(prob.shape[0], -1), min=1e-20)
+    rows = H.float()[labels.to(torch.int64).reshape(-1)]
+    return -(rows * torch.log(p)).sum() / prob.shape[0]
+
+
+def multinomial_logistic_loss(prob: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """MultinomialLogisticLoss: -sum log(max(prob[label], FLT_MIN)) / N over
+    the last axis of `prob`."""
+    p = prob.float()
+    picked = torch.gather(p, -1, labels.to(torch.int64).unsqueeze(-1))
+    return -torch.log(torch.clamp(picked, min=FLT_MIN)).sum() / prob.shape[0]
+
+
+def accuracy(scores: torch.Tensor, labels: torch.Tensor, *, top_k: int = 1,
+             ignore_label: Optional[int] = None, per_class: bool = False):
+    """Accuracy layer (accuracy_layer.cpp) over the LAST axis of `scores`:
+    a label is a hit when it is among the top_k scores, ties ranking the
+    lower index first (as `lax.top_k`); the share of hits among the live
+    labels. per_class: also each class's share among its live labels, 0
+    for a class that never occurs (the optional second top)."""
+    lab = labels.to(torch.int64)
+    topk = torch.argsort(-scores.float(), dim=-1, stable=True)[..., :top_k]
+    hit = (topk == lab.unsqueeze(-1)).any(dim=-1)
+    live = lab != ignore_label if ignore_label is not None else torch.ones_like(lab, dtype=torch.bool)
+    total = (hit & live).sum().float() / torch.clamp(live.sum().float(), min=1.0)
+    if not per_class:
+        return total
+    c = scores.shape[-1]
+    livef = live.reshape(-1, 1).float()
+    flat = lab.reshape(-1)
+    livef = livef * ((flat >= 0) & (flat < c)).float().reshape(-1, 1)   # one_hot's zero rows
+    onehot = torch.nn.functional.one_hot(flat.clamp(0, c - 1), c).float() * livef
+    counts = onehot.sum(dim=0)
+    correct = (onehot * hit.reshape(-1, 1).float()).sum(dim=0)
+    return total, torch.where(counts == 0, 0.0, correct / torch.clamp(counts, min=1.0))

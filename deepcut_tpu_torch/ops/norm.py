@@ -1,5 +1,5 @@
-"""Inference BatchNorm (Caffe 3-blob flavour), BN+Scale as one affine, and
-the graph engine's Scale, LRN and MVN.
+"""BatchNorm (Caffe 3-blob flavour) at inference and in training, BN+Scale
+as one affine, and the graph engine's Scale, LRN and MVN.
 
 Counterpart of `deepcut_tpu.ops.norm`. Caffe's BatchNorm stores unscaled
 running sums and a moving-average scale factor (blobs[2]); the statistics
@@ -9,7 +9,7 @@ NCHW; per-channel vectors broadcast over dim 1.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +41,37 @@ def batch_norm_inference(
     inv_std = torch.rsqrt(var.float() + eps)
     out = (x.float() - per_channel(mean.float(), x)) * per_channel(inv_std, x)
     return out.to(x.dtype)
+
+
+class BNStats(NamedTuple):
+    mean: torch.Tensor
+    var: torch.Tensor
+    scale_factor: torch.Tensor
+
+
+def batch_norm_train(x: torch.Tensor, stats: BNStats, *, eps: float = 1e-5,
+                     momentum: float = 0.999) -> Tuple[torch.Tensor, BNStats]:
+    """Training-mode BatchNorm with Caffe's moving-average bookkeeping
+    (batch_norm_layer.cpp), over dim 1 of x (any rank >= 2).
+
+    x is normalised with the batch's own moments (biased variance), and
+    autograd differentiates through them. The new stored statistics are
+    ``mean*momentum + batch_mean``, ``var*momentum + m/(m-1)*batch_var``
+    (m = elements per channel) and ``scale_factor*momentum + 1``, computed
+    without gradient: the statistics are not learned. Returns (y, stats)
+    instead of mutating the blobs."""
+    xf = x.float()
+    axes = [d for d in range(x.dim()) if d != 1]
+    batch_mean = xf.mean(dim=axes)
+    centered = xf - per_channel(batch_mean, xf)
+    batch_var = (centered * centered).mean(dim=axes)
+    m = x.numel() // x.shape[1]
+    with torch.no_grad():
+        new = BNStats(mean=momentum * stats.mean + batch_mean,
+                      var=momentum * stats.var + (m / max(m - 1, 1)) * batch_var,
+                      scale_factor=momentum * stats.scale_factor + 1.0)
+    y = centered * per_channel(torch.rsqrt(batch_var + eps), xf)
+    return y.to(x.dtype), new
 
 
 def bn_scale_affine(

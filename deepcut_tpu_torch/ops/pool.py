@@ -21,7 +21,8 @@ package with planted ties, and chip_smoke.py against a plain first-max
 scatter on the card.
 
 The graph engine's pooling (`max_pool2d`, `avg_pool2d`,
-`stochastic_pool2d_test`) takes any Caffe geometry, square or (h, w).
+`stochastic_pool2d_test`, `stochastic_pool2d_train`) takes any Caffe
+geometry, square or (h, w).
 """
 
 from __future__ import annotations
@@ -103,3 +104,29 @@ def stochastic_pool2d_test(x: torch.Tensor, *, kernel, stride=1) -> torch.Tensor
                       torch.zeros_like(sums))
     return out.to(x.dtype)
 
+
+def stochastic_pool2d_train(x: torch.Tensor, gen: torch.Generator, *, kernel,
+                            stride=1) -> torch.Tensor:
+    """STOCHASTIC pooling at TRAIN (pooling_layer.cu): each window picks one
+    of its elements with probability proportional to its (non-negative)
+    value, by inverse-CDF sampling: u ~ U[0, 1) from `gen` (on x's device)
+    per output, and the first element in row-major window order whose
+    running sum reaches u * the window's sum. The output is that element,
+    so the gradient goes to it alone. Ceil-mode windows over zeros past the
+    edge, as the TEST form; a window summing to 0 picks its first element."""
+    xp, (kh, kw), (sh, sw), _, (oh, ow) = _caffe_padded(x.float(), kernel, stride, 0, 0.0)
+    views = [xp[:, :, dy:dy + (oh - 1) * sh + 1:sh, dx:dx + (ow - 1) * sw + 1:sw]
+             for dy in range(kh) for dx in range(kw)]
+    sums = torch.zeros_like(views[0])
+    for v in views:            # the running sums' own order: the last one reaches u * sums
+        sums = sums + v
+    thresh = torch.rand(sums.shape, generator=gen, device=x.device) * sums
+    out = torch.zeros_like(sums)
+    cum = torch.zeros_like(sums)
+    picked = torch.zeros(sums.shape, dtype=torch.bool, device=x.device)
+    for v in views:
+        cum = cum + v
+        take = ~picked & (cum >= thresh)
+        out = torch.where(take, v, out)
+        picked = picked | take
+    return out.to(x.dtype)

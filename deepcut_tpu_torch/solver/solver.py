@@ -1,13 +1,15 @@
-"""The DeeperCut training loop (the reference Solver, src/caffe/solver.cpp),
-in PyTorch.
+"""The training loops (the reference Solver, src/caffe/solver.cpp), in
+PyTorch.
 
-Counterpart of the pose half of `deepcut_tpu.solver.solver`:
-`SolverParams` parses the same solver.prototxt files; `PoseSolver` runs
-prefetched batches through the forward, the fork's losses and their
+Counterpart of `deepcut_tpu.solver.solver` on one device. `SolverParams`
+parses the same solver.prototxt files. `PoseSolver` runs DeeperCut:
+prefetched batches through the native forward, the fork's losses and their
 hand-written backward passes, with iter_size accumulation on the host, the
 smoothed-loss display line, the `test_interval` eval hook, SIGINT -> stop /
-SIGHUP -> snapshot, snapshots and restore. `GraphSolver` belongs to the
-engine slice and is not here.
+SIGHUP -> snapshot, snapshots and restore. `GraphSolver` runs any prototxt
+net through the graph engine (`core.graph.Net.make_train_step`), with its
+test nets sharing the trained layers, the data layers it can feed
+(MemoryData, DummyData) or staged inputs, and the same loop controls.
 
 Snapshots are the JAX package's: a ``.npz`` with ``params/<layer>/<key>``
 and ``state/...`` entries in its layouts (HWIO conv weights), so either
@@ -21,14 +23,16 @@ import os
 import signal as _signal
 import time
 from collections import deque
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from deepcut_tpu_torch.proto import text_format
 from deepcut_tpu_torch.proto.text_format import PbNode
-from deepcut_tpu_torch.models.convert import params_from_numpy, params_to_numpy, save_caffemodel
+from deepcut_tpu_torch.models.convert import (
+    graph_params_from_numpy, graph_params_to_numpy, params_from_numpy, params_to_numpy,
+    save_caffemodel)
 from deepcut_tpu_torch.models.resnet import DeeperCut, init_params
 from deepcut_tpu_torch.models.train import bn_frozen_mults
 from deepcut_tpu_torch.parallel.train_step import MESH_MESSAGE, GradStep, batch_preparer
@@ -39,8 +43,7 @@ from deepcut_tpu_torch.solver.update_rules import SolverConfig
 @dataclasses.dataclass
 class SolverParams:
     """Loop-level knobs from SolverParameter + the update-rule SolverConfig
-    (the fields `deepcut_tpu.solver.solver.SolverParams` reads for the pose
-    trainer and the CLI)."""
+    (the fields of `deepcut_tpu.solver.solver.SolverParams`)."""
 
     config: SolverConfig
     max_iter: int = 100000
@@ -50,14 +53,25 @@ class SolverParams:
     snapshot_prefix: str = "snapshot"
     snapshot_format: str = "BINARYPROTO"
     test_interval: int = 0
+    test_iter: int = 0  # the first test_iter (single-test-net convenience)
     random_seed: int = -1
     train_net: str = ""
+    test_net: str = ""  # the first test_net file (single-test-net convenience)
     net: str = ""
+    # the full train / test net specification (caffe.proto:104-133): per-net
+    # test_iter, test net files, inline NetParameters, NetState overrides
+    test_iters: tuple = ()
+    test_net_files: tuple = ()
+    test_net_params: tuple = ()
     net_param: Optional[PbNode] = None
     train_net_param: Optional[PbNode] = None
     train_state: Optional[PbNode] = None
+    test_states: tuple = ()
     test_initialization: bool = True
+    test_compute_loss: bool = False
     snapshot_after_train: bool = True
+    snapshot_diff: bool = False
+    debug_info: bool = False
     has_snapshot_prefix: bool = False
 
     @staticmethod
@@ -107,14 +121,23 @@ class SolverParams:
             snapshot_prefix=node.get_str("snapshot_prefix", "snapshot"),
             snapshot_format=node.get_str("snapshot_format", "BINARYPROTO"),
             test_interval=node.get_int("test_interval", 0),
+            test_iter=int(node.get_list("test_iter")[0]) if node.get_list("test_iter") else 0,
             random_seed=node.get_int("random_seed", -1),
             train_net=node.get_str("train_net", ""),
+            test_net=str(node.get_list("test_net")[0]) if node.get_list("test_net") else "",
             net=node.get_str("net", ""),
+            test_iters=tuple(int(v) for v in node.get_list("test_iter")),
+            test_net_files=tuple(str(v) for v in node.get_list("test_net")),
+            test_net_params=tuple(node.get_list("test_net_param")),
             net_param=node.get("net_param"),
             train_net_param=node.get("train_net_param"),
             train_state=node.get("train_state"),
+            test_states=tuple(node.get_list("test_state")),
             test_initialization=node.get_bool("test_initialization", True),
+            test_compute_loss=node.get_bool("test_compute_loss", False),
             snapshot_after_train=node.get_bool("snapshot_after_train", True),
+            snapshot_diff=node.get_bool("snapshot_diff", False),
+            debug_info=node.get_bool("debug_info", False),
             has_snapshot_prefix=node.has("snapshot_prefix"),
         )
 
@@ -132,11 +155,38 @@ class SolverParams:
             raise ValueError("SolverParameter must specify a train net using one of: "
                              "net, net_param, train_net, train_net_param")
         model_def = self.train_net_param or self.net_param or self.train_net or self.net
-        if self.train_state is None:
-            return model_def, (), None
-        st = self.train_state
-        return (model_def, tuple(str(s) for s in st.get_list("stage")),
-                st.get_int("level", 0) if st.has("level") else None)
+        return (model_def,) + _state_overrides(self.train_state)
+
+    def test_net_sources(self):
+        """The test-net instances in order, as (model_def, test_iter, stages,
+        level) (Solver::InitTestNets, solver.cpp:104-191): inline
+        test_net_param first, then test_net files, then instances of the
+        generic net / net_param for the remaining test_iter entries;
+        test_state is unspecified or given once per instance."""
+        has_generic = bool(self.net) or self.net_param is not None
+        num_named = len(self.test_net_params) + len(self.test_net_files)
+        iters = list(self.test_iters)
+        if (len(iters) < num_named) if has_generic else (len(iters) != num_named):
+            raise ValueError("test_iter must be specified for each test network")
+        num_instances = num_named + (len(iters) - num_named if has_generic else 0)
+        if self.test_states and len(self.test_states) != num_instances:
+            raise ValueError("test_state must be unspecified or specified once per test net")
+        if num_instances and self.test_interval <= 0:
+            raise ValueError("test_interval must be > 0 with test nets")
+        defs: List[Any] = list(self.test_net_params) + list(self.test_net_files)
+        defs += [self.net_param if self.net_param is not None else self.net] * (
+            num_instances - num_named)
+        return [(d, iters[i]) + _state_overrides(self.test_states[i] if self.test_states else None)
+                for i, d in enumerate(defs)]
+
+
+def _state_overrides(state_node: Optional[PbNode]):
+    """(stages, level) of a NetState node, merged by Net over the net's own
+    state; level None when unset (an explicit 0 overrides the net's)."""
+    if state_node is None:
+        return (), None
+    return (tuple(str(s) for s in state_node.get_list("stage")),
+            state_node.get_int("level", 0) if state_node.has("level") else None)
 
 
 # -- checkpoints (the JAX package's .npz keys and layouts) --------------------
@@ -171,30 +221,43 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
     return root
 
 
-def save_checkpoint(path: str, params, state: Dict[str, Any]) -> None:
+def _layouts(layer_types):
+    """(to numpy, from numpy) between the port's layouts and the JAX
+    package's: the native DeeperCut's by layer name, or a graph net's by
+    layer type."""
+    if layer_types is None:
+        return params_to_numpy, params_from_numpy
+    return (lambda t: graph_params_to_numpy(t, layer_types),
+            lambda t: graph_params_from_numpy(t, layer_types))
+
+
+def save_checkpoint(path: str, params, state: Dict[str, Any], *, layer_types=None) -> None:
     """params/state (the port's layouts, any device) -> the JAX package's
-    ``.npz``: params and every state tree in its layouts, ``iter`` int32."""
+    ``.npz``: params and every state tree in its layouts, ``iter`` int32.
+    layer_types: a graph net's `Net.layer_types()` (None: DeeperCut's)."""
+    to_numpy, _ = _layouts(layer_types)
     d = os.path.dirname(path)
     if d:
         os.makedirs(d, exist_ok=True)
-    flat = _flatten(params_to_numpy(params), "params")
+    flat = _flatten(to_numpy(params), "params")
     for k, v in state.items():
         if k == "iter":
             flat["state/iter"] = np.asarray(int(v), np.int32)
         else:
-            flat.update(_flatten(params_to_numpy(v), f"state/{_esc(k)}"))
+            flat.update(_flatten(to_numpy(v), f"state/{_esc(k)}"))
     np.savez(path, **flat)
 
 
-def load_checkpoint(path: str):
+def load_checkpoint(path: str, *, layer_types=None):
     """A ``.npz`` written by either package -> (params, state) in the port's
     layouts, f32 on the CPU, ``state["iter"]`` an int."""
+    _, from_numpy = _layouts(layer_types)
     with np.load(path, allow_pickle=False) as data:
         tree = _unflatten({k: data[k] for k in data.files})
     state: Dict[str, Any] = {}
     for k, v in tree.get("state", {}).items():
-        state[k] = int(v) if k == "iter" else params_from_numpy(v)
-    return params_from_numpy(tree["params"]), state
+        state[k] = int(v) if k == "iter" else from_numpy(v)
+    return from_numpy(tree.get("params", {})), state
 
 
 # -- signal handling (reference: util/signal_handler.cpp) -------------------
@@ -234,6 +297,271 @@ class SignalHandler:
 
     def _on_sighup(self, *_):
         self._apply(self._sighup_effect)
+
+
+class GraphSolver:
+    """The `caffe train` loop for any prototxt net, through the graph engine
+    (Solver::Step / Solve / Test, solver.cpp), on one device ("cuda" by
+    default).
+
+    The train net is resolved from the solver (net, net_param, train_net or
+    train_net_param, with train_state's stages and level), or given as a
+    `core.graph.Net` or a model definition; it computes in f32
+    (``compute_dtype=None``), with TF32 off in the step. Its inputs come
+    from its data layers (MemoryData, DummyData) and from `extra_inputs`
+    ({name: NCHW array}, staged over them on every step, as pycaffe's
+    persistent blobs); test nets (Solver::InitTestNets) share the trained
+    layers and take `extra_test_inputs`."""
+
+    _STATE_KEYS = ("history", "update_sq", "m", "v")
+
+    def __init__(self, params: SolverParams, net=None, *, mesh=None, handle_signals: bool = True,
+                 log: Callable[[str], None] = print, sigint_effect: str = "stop",
+                 sighup_effect: str = "snapshot", device="cuda"):
+        from deepcut_tpu_torch.core.graph import Net
+
+        if mesh is not None:
+            raise NotImplementedError(MESH_MESSAGE)
+        self.params_cfg = params
+        self.device = device
+        if net is None:
+            model_def, stages, level = params.resolve_train_net()
+            net = Net(model_def, phase="TRAIN", stages=stages, level=level, compute_dtype=None,
+                      seed=max(params.random_seed, 0), device=device)
+        elif not isinstance(net, Net):
+            net = Net(net, phase="TRAIN", compute_dtype=None, seed=max(params.random_seed, 0),
+                      device=device)
+        self.net = net
+        self.log = log
+        self.signals = SignalHandler(handle_signals, sigint_effect, sighup_effect)
+        self._loss_window: deque = deque(maxlen=max(params.average_loss, 1))
+        self.net.materialize_params()
+        self._step_fn = self.net.make_train_step(params.config)
+        self.state = update_rules.init_state(params.config, self.net.params)
+        self._test_nets: Optional[List] = None
+        self._last_host_inputs: Dict[str, Any] = {}
+        # the last update (old params - new params): what the reference's
+        # Blob.diff holds at snapshot time (sgd_solver.cpp:106-120)
+        self._last_diff: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+        self.extra_inputs: Dict[str, Any] = {}
+        self.extra_test_inputs: Dict[str, Any] = {}
+
+    @property
+    def iter(self) -> int:
+        return int(self.state["iter"])
+
+    @property
+    def smoothed_loss(self) -> float:
+        """Average loss over the last `average_loss` iterations
+        (Solver::UpdateSmoothedLoss, solver.cpp:483-495)."""
+        if not self._loss_window:
+            return float("nan")
+        return sum(self._loss_window) / len(self._loss_window)
+
+    # -- test nets ---------------------------------------------------------
+    def _init_test_nets(self):
+        """Every test-net instance (Solver::InitTestNets): a TEST-phase Net
+        with its test_state merged over the net's own state."""
+        if self._test_nets is not None:
+            return self._test_nets
+        from deepcut_tpu_torch.core.graph import Net
+
+        p = self.params_cfg
+        kw = dict(phase="TEST", compute_dtype=None, device=self.device)
+        if not (p.test_net_files or p.test_net_params or p.test_iters):
+            source = p.test_net or p.net   # a programmatic SolverParams
+            self._test_nets = [(Net(source, **kw), p.test_iter)] if source and p.test_iter > 0 else []
+            return self._test_nets
+        self._test_nets = [(Net(d, stages=stages, level=level, **kw), iters)
+                           for d, iters, stages, level in p.test_net_sources()]
+        return self._test_nets
+
+    def _share_trained_layers(self, tnet) -> None:
+        """Point a test net at the live train params and their alias table
+        (Net::ShareTrainedLayersWith, which Test calls on each pass)."""
+        tnet.params = self.net.params
+        tnet._aliases = self.net._aliases
+        tnet._param_keys = self.net._param_keys
+        tnet._params_ready = True
+
+    def test(self, test_net_id: int = 0) -> Dict[str, float]:
+        """Run test net `test_net_id` for its test_iter forwards, averaging
+        each output element over them, logged as Solver::Test does
+        (solver.cpp:335-409), with the averaged loss under
+        `test_compute_loss`. Returns each output's mean."""
+        nets = self._init_test_nets()
+        if not nets:
+            return {}
+        tnet, iters = nets[test_net_id]
+        self._share_trained_layers(tnet)
+        loss_weights = tnet.blob_loss_weights()
+        sums: Dict[str, np.ndarray] = {}
+        loss = 0.0
+        for _ in range(iters):
+            outs = tnet.forward(**self.extra_test_inputs)
+            if self.params_cfg.test_compute_loss:
+                loss += tnet.host_total_loss(outs)
+            for nm in tnet.output_names():
+                sums[nm] = sums.get(nm, 0.0) + np.asarray(outs[nm], np.float64)
+        if self.params_cfg.test_compute_loss:
+            self.log(f"Test loss: {loss / iters:.6g}")
+        avgs: Dict[str, float] = {}
+        idx = 0
+        for nm, total in sums.items():
+            mean = total / iters
+            w = loss_weights.get(nm, 0.0)
+            for v in np.ravel(mean):
+                suffix = f" (* {w:g} = {w * v:.6g} loss)" if w else ""
+                self.log(f"    Test net output #{idx}: {nm} = {v:.6g}{suffix}")
+                idx += 1
+            avgs[nm] = float(np.mean(mean))
+        return avgs
+
+    def test_all(self) -> List[Dict[str, float]]:
+        """Every test net in order (Solver::TestAll)."""
+        results = []
+        for i in range(len(self._init_test_nets())):
+            self.log(f"Iteration {self.iter}, Testing net (#{i})")
+            results.append(self.test(i))
+        return results
+
+    # -- the loop ----------------------------------------------------------
+    def _next_inputs(self) -> Dict[str, torch.Tensor]:
+        """The step's inputs on the device: extra_inputs over the data
+        layers' next batch; with iter_size k, k batches stacked on a new
+        leading axis."""
+        def pull_one(stash: bool):
+            inputs: Dict[str, Any] = dict(self.extra_inputs)
+            self.net._pull_data_layers(inputs)
+            if stash:   # the host batch, for the debug_info forward of this iteration
+                self._last_host_inputs = {k: np.asarray(v) for k, v in inputs.items()}
+            return {nm: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+                    .to(self.net.device) for nm, v in inputs.items()}
+
+        k = max(self.params_cfg.config.iter_size, 1)
+        stash = bool(self.params_cfg.debug_info)
+        if k == 1:
+            return pull_one(stash)
+        batches = [pull_one(stash and i == 0) for i in range(k)]
+        return {nm: torch.stack([b[nm] for b in batches]) for nm in batches[0]}
+
+    def step(self, iters: int) -> None:
+        """Solver::Step (solver.cpp:193-275): the test pass on test_interval
+        boundaries (iteration 0 with test_initialization), the step, the
+        smoothed-loss display on the pre-update iteration, snapshots on the
+        interval and on a signal."""
+        cfg = self.params_cfg
+        params = self.net.params
+        for _ in range(iters):
+            if self.signals.stop_requested:
+                self.log(f"Optimization stopped by signal at iter {self.iter}.")
+                break
+            if self.signals.snapshot_requested:
+                self.snapshot()
+                self.signals.snapshot_requested = False
+            if (cfg.test_interval and self.iter % cfg.test_interval == 0
+                    and (self.iter > 0 or cfg.test_initialization)):
+                self.test_all()
+            it_pre = self.iter
+            display_now = cfg.display and it_pre % cfg.display == 0
+            inputs = self._next_inputs()
+            if display_now and cfg.debug_info:
+                # the per-blob / per-param mean |value| stream (Net::*DebugInfo,
+                # net.cpp:647-735), on this iteration's own batch
+                for nm, v in self.net.debug_info(**self._last_host_inputs).items():
+                    self.log(f"    [Backward] Param {nm[6:]}, data: {v:.6g}" if nm.startswith(
+                        "param:") else f"    [Forward] Blob {nm}, data: {v:.6g}")
+            before = ({n: {k: v.detach().clone() for k, v in e.items()} for n, e in params.items()}
+                      if cfg.snapshot_diff else None)
+            _, self.state, loss = self._step_fn(params, self.state, inputs)
+            if before is not None:
+                self._last_diff = {n: {k: before[n][k] - v.detach() for k, v in e.items()}
+                                   for n, e in params.items()}
+            self._loss_window.append(float(loss))
+            if display_now:
+                lr = update_rules.learning_rate(cfg.config, it_pre)
+                self.log(f"Iteration {it_pre}, loss = {self.smoothed_loss:.5f}, lr = {lr:.6g}")
+            if cfg.snapshot and self.iter % cfg.snapshot == 0:
+                self.snapshot()
+
+    def solve(self) -> None:
+        """Solver::Solve (solver.cpp:277-324): to max_iter, the final
+        snapshot (unless snapshot_after_train is false or the interval just
+        wrote one; it also needs a snapshot interval or prefix), then a
+        display forward and a test pass where the last iteration lands on
+        their intervals."""
+        cfg = self.params_cfg
+        self.step(cfg.max_iter - self.iter)
+        if (cfg.snapshot_after_train and (cfg.snapshot or cfg.has_snapshot_prefix)
+                and (not cfg.snapshot or self.iter % cfg.snapshot != 0)):
+            self.snapshot()
+        if self.signals.stop_requested:
+            self.log("Optimization stopped early.")
+            return
+        if cfg.display and self.iter % cfg.display == 0 and self.net.data_sources:
+            outs = self.net.forward(**self.extra_inputs)
+            self._loss_window.append(self.net.host_total_loss(outs))
+            self.log(f"Iteration {self.iter}, loss = {self.smoothed_loss:.5f}")
+        if cfg.test_interval and self.iter % cfg.test_interval == 0:
+            self.test_all()
+        self.log("Optimization Done.")
+
+    # -- snapshot / restore (solver.cpp:411-481) ---------------------------
+    def snapshot(self, export_caffemodel: bool = True) -> str:
+        """Writes the ``.npz`` (params and solver state in the JAX package's
+        keys and layouts, for restore) and, by default, the reference's
+        ``.caffemodel``, with each blob's last update as its diff under
+        `snapshot_diff`."""
+        from deepcut_tpu_torch.core.graph import DATA_SLICE
+        from deepcut_tpu_torch.proto.caffemodel import save_caffemodel as save_netparameter
+
+        fmt = self.params_cfg.snapshot_format.upper()
+        if fmt != "BINARYPROTO":
+            raise NotImplementedError(
+                f"snapshot_format {fmt}: the graph solver writes .npz + .caffemodel snapshots; "
+                f"HDF5 {DATA_SLICE}" if fmt == "HDF5" else
+                f"snapshot_format {fmt}: the port writes .npz + .caffemodel snapshots only")
+        types = self.net.layer_types()
+        prefix = f"{self.params_cfg.snapshot_prefix}_iter_{self.iter}"
+        save_checkpoint(f"{prefix}.npz", self.net.params, self.state, layer_types=types)
+        self.log(f"Snapshotting to {prefix}.npz")
+        if export_caffemodel:
+            diffs = (graph_params_to_numpy(self._last_diff, types)
+                     if self.params_cfg.snapshot_diff and self._last_diff is not None else None)
+            save_netparameter(f"{prefix}.caffemodel",
+                              graph_params_to_numpy(self.net.params, types),
+                              net_name=self.net.name, deconv_names=self.net.deconv_names(),
+                              diffs=diffs)
+            self.log(f"Snapshotting model weights to {prefix}.caffemodel")
+        return f"{prefix}.npz"
+
+    @torch.no_grad()
+    def restore(self, path: str) -> None:
+        """Resume from a ``.npz`` of either package: the params are copied
+        into the live tensors (the test nets share them), the solver state
+        moves to the device."""
+        params, state = load_checkpoint(path, layer_types=self.net.layer_types())
+        live = self.net.params
+        want = {(n, k) for n, e in live.items() for k in e}
+        got = {(n, k) for n, e in params.items() for k in e}
+        if want != got:
+            raise ValueError(f"{path}: its blobs differ from the net's "
+                             f"({sorted(want ^ got)[:5]} ...)")
+        for name, entry in params.items():
+            for k, v in entry.items():
+                live[name][k].copy_(v)
+        new_state: Dict[str, Any] = {"iter": state["iter"]}
+        for key, tree in state.items():
+            if key != "iter":
+                new_state[key] = {n: {k: v.to(live[n][k].device) for k, v in e.items()}
+                                  for n, e in tree.items()}
+                for n, e in live.items():   # layers whose blobs are all aliases
+                    new_state[key].setdefault(n, {})
+        if set(new_state) != set(self.state):
+            raise ValueError(f"{path}: solver state {sorted(new_state)} does not fit "
+                             f"{self.params_cfg.config.solver_type} ({sorted(self.state)})")
+        self.state = new_state
+        self.log(f"Restored from {path} at iter {self.iter}")
 
 
 class PoseSolver:

@@ -15,16 +15,21 @@ Counterpart of `deepcut_tpu.tools.cli` (tools/caffe.cpp's brew verbs).
 pose_data_param configures the targets and the data source
 (`data.pipeline.PoseDataSource`, uint8 canvases, compact annotations
 rasterized on the device unless -host_targets), the ResNet trunk is built
-natively, and `solver.solver.PoseSolver` trains it on one device. -mesh /
--spatial (multi-GPU) and solvers without a PoseData layer (the generic graph
-engine) raise NotImplementedError. Precision: the reference trains in pure
-f32, and cuDNN's default TF32 is not f32, so f32 training turns TF32 off
-for cuDNN and matmuls and says so in its first log line; -mixed_precision
-(bf16 convs, f32 params, losses and updates) is the fast path.
+natively, and `solver.solver.PoseSolver` trains it on one device. Any other
+solver trains its prototxt net through the graph engine
+(`solver.solver.GraphSolver`), finetuning from -weights (a comma-separated
+list of .caffemodel files, copied by layer name in order) or resuming from
+-snapshot; its nets are fed by MemoryData, DummyData or Input tops, and a
+net with another data layer (Data, ImageData, HDF5Data, WindowData) raises
+NotImplementedError (the data slice of the port). -mesh / -spatial
+(multi-GPU) raise NotImplementedError. Precision: the reference trains in
+pure f32, and cuDNN's default TF32 is not f32, so f32 training turns TF32
+off for cuDNN and matmuls and says so in its first log line;
+-mixed_precision (bf16 convs, f32 params, losses and updates) is the
+DeeperCut fast path.
 
 `test` and `time` build the graph engine's `core.graph.Net` from a prototxt
-with declared inputs (a net with data layers raises until the engine's
-training slice). `test` runs `Net.forward` on seeded random inputs and
+with declared inputs. `test` runs `Net.forward` on seeded random inputs and
 prints each output's mean over the iterations (tools/caffe.cpp:229-298).
 `time` times the serving forward `Net.make_forward` (bf16 stream, or f32
 with -fp32; -fold_bn folds BatchNorm and casts the weights first) with CUDA
@@ -47,9 +52,8 @@ from deepcut_tpu_torch.data.window_file import parse_stats_file
 from deepcut_tpu_torch.pose.targets import TargetConfig
 from deepcut_tpu_torch.proto import text_format
 
-ENGINE_MESSAGE = ("the solver's net has no PoseData layer: generic prototxt nets train "
-                  "through the graph engine, which belongs to the engine slice of the "
-                  "port and is not ported yet")
+ENGINE_MESSAGE = ("the solver's net has no PoseData layer: a generic prototxt net trains "
+                  "through solver.solver.GraphSolver (the train verb runs it)")
 MULTI_GPU_MESSAGE = ("-mesh / -spatial (data-parallel and spatial training) belong to the "
                      "multi-GPU slice of the port, which is not ported yet")
 
@@ -81,6 +85,41 @@ def _target_config_from_layer(node) -> "TargetConfig":
     return TargetConfig(**kw), pp
 
 
+def _pose_data_layer(sp):
+    """The PoseData layer node of the solver's train net, or None."""
+    model_def, _stages, _level = sp.resolve_train_net()
+    net_proto = model_def if not isinstance(model_def, str) else text_format.parse_file(model_def)
+    return next((layer for layer in net_proto.get_list("layer")
+                 if layer.get_str("type") == "PoseData"), None)
+
+
+def _tf32_off() -> None:
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("f32 training: TF32 off for cuDNN convolutions and matmuls "
+          "(the reference trains in full f32; -mixed_precision is the fast path)")
+
+
+def train_graph(args, sp) -> int:
+    """`train` for a solver without a PoseData layer: GraphSolver over its
+    prototxt net (caffe.cpp train with the generic net)."""
+    from deepcut_tpu_torch.solver.solver import GraphSolver
+
+    _tf32_off()
+    solver = GraphSolver(sp, sigint_effect=args.sigint_effect, sighup_effect=args.sighup_effect,
+                         device=args.device)
+    if args.weights:
+        # finetune: matching layers by name, file by file (caffe.cpp CopyLayers)
+        for w in args.weights.split(","):
+            solver.net.load_weights(w)
+    if args.snapshot:
+        solver.restore(args.snapshot)
+    solver.solve()
+    return 0
+
+
 def pose_data(sp, *, workers: int = 4, host_targets: bool = False,
               augment_device: bool = False):
     """The PoseData layer of a solver's train net -> ``(target_cfg,
@@ -89,10 +128,7 @@ def pose_data(sp, *, workers: int = 4, host_targets: bool = False,
     of uint8 canvases with compact annotations for the device rasterizer
     (dense host maps with host_targets), seeded by the solver's
     random_seed. Close the source when done."""
-    model_def, _stages, _level = sp.resolve_train_net()
-    net_proto = model_def if not isinstance(model_def, str) else text_format.parse_file(model_def)
-    data_layer = next((layer for layer in net_proto.get_list("layer")
-                       if layer.get_str("type") == "PoseData"), None)
+    data_layer = _pose_data_layer(sp)
     if data_layer is None:
         raise NotImplementedError(ENGINE_MESSAGE)
     tcfg, pp = _target_config_from_layer(data_layer)
@@ -127,16 +163,15 @@ def train(args) -> int:
     except ValueError as e:
         print(str(e), file=sys.stderr)
         return 1
+    if _pose_data_layer(sp) is None:
+        return train_graph(args, sp)
     tcfg, stats, source, pp = pose_data(sp, workers=args.data_workers,
                                         host_targets=args.host_targets,
                                         augment_device=args.augment_device)
     if args.mixed_precision:
         print("mixed precision: bf16 convolutions, f32 params, losses and updates")
     else:
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        print("f32 training: TF32 off for cuDNN convolutions and matmuls "
-              "(the reference trains in full f32; -mixed_precision is the fast path)")
+        _tf32_off()
     model_cfg = deepercut_config(
         args.resnet, num_joints=tcfg.num_classes,
         location_refinement=tcfg.location_refinement, pairwise=tcfg.regress_to_other,
@@ -291,10 +326,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(prog="deepcut_tpu_torch", description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = parser.add_subparsers(dest="verb", required=True)
-    p = sub.add_parser("train", help="train a DeeperCut model from a solver prototxt")
+    p = sub.add_parser("train", help="train from a solver prototxt (DeeperCut or any graph net)")
     p.add_argument("-solver", required=True)
     p.add_argument("-snapshot", default="", help="resume from a .npz snapshot (either package's)")
-    p.add_argument("-weights", default="", help="finetune from a .caffemodel")
+    p.add_argument("-weights", default="",
+                   help="finetune from a .caffemodel (a graph net: a comma-separated list)")
     p.add_argument("-batch_size", type=int, default=None,
                    help="override pose_data_param.batch_size (default: the prototxt's, else 1)")
     p.add_argument("-resnet", type=int, default=152, choices=(50, 101, 152))

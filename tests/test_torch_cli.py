@@ -6,7 +6,8 @@ steps (loss 3e5, then 4e12, then NaN), so the first run finetunes from a
 tamed random `.caffemodel` (-weights, the path users take), in f32, with
 snapshots; the second resumes from that `.npz` under -mixed_precision
 -remat -augment_device; a third takes host-rasterized targets at batch 2.
-The parts that are not ported raise NotImplementedError.
+The parts that are not ported (multi-GPU, the Data layer) raise
+NotImplementedError.
 """
 
 import math
@@ -117,8 +118,12 @@ def test_unported_paths_raise(tmp_path):
         cli.main(["train", "-solver", str(solver), "-mesh", "2", "-device", "cpu"])
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         cli.main(["train", "-solver", str(solver), "-spatial", "2", "-device", "cpu"])
+    # a generic net trains through GraphSolver now (tests/test_torch_engine_solver.py);
+    # one fed by a Data layer waits for the data slice
     (tmp_path / "lenet.prototxt").write_text(
-        'name: "n" layer { name: "ip" type: "InnerProduct" bottom: "data" top: "ip" }\n')
+        'name: "n" layer { name: "d" type: "Data" top: "data" top: "label" '
+        'data_param { source: "x" batch_size: 2 } }\n'
+        'layer { name: "ip" type: "InnerProduct" bottom: "data" top: "ip" }\n')
     (tmp_path / "graph_solver.prototxt").write_text(f'net: "{tmp_path}/lenet.prototxt"\nbase_lr: 0.1\n')
-    with pytest.raises(NotImplementedError, match="engine slice"):
+    with pytest.raises(NotImplementedError, match="data slice.*9c"):
         cli.main(["train", "-solver", str(tmp_path / "graph_solver.prototxt"), "-device", "cpu"])

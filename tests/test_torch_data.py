@@ -222,3 +222,32 @@ def test_prefetcher_delivers_the_sources_batches_and_raises_its_errors():
             pre.get()
     finally:
         pre.stop()
+
+
+def test_pckh_evaluate_matches():
+    """pose/evaluate.py: PCKh, the head size, the report and the estimator
+    loop (a missing pose scores every joint missed) equal to the original."""
+    from deepcut_tpu.pose import evaluate as j_ev
+    from deepcut_tpu_torch.pose import evaluate as t_ev
+
+    rng = np.random.RandomState(9)
+    gt = rng.uniform(0, 100, (6, 14, 2)).astype(np.float32)
+    gt[1, 3] = np.nan
+    pred = gt + rng.randn(6, 14, 2).astype(np.float32) * 8
+    heads = rng.uniform(10, 30, 6).astype(np.float32)
+    for t in (0.2, 0.5):
+        _equal_trees(t_ev.pckh(pred, gt, heads, t), j_ev.pckh(pred, gt, heads, t))
+    assert t_ev.head_size_from_box(1, 2, 30, 40) == j_ev.head_size_from_box(1, 2, 30, 40)
+    assert t_ev.MPII_JOINT_NAMES == j_ev.MPII_JOINT_NAMES
+
+    class Fixed:
+        def __init__(self):
+            self.poses = iter([np.vstack([pred[0].T, np.ones((1, 14))]), None])
+
+        def estimate_pose(self, image, scales=None):
+            return next(self.poses)
+
+    samples = [{"image": None, "gt_xy": gt[i], "head_size": float(heads[i])} for i in range(2)]
+    got, want = t_ev.evaluate_estimator(Fixed(), samples), j_ev.evaluate_estimator(Fixed(), samples)
+    _equal_trees(got, want)
+    assert t_ev.format_report(got) == j_ev.format_report(want)

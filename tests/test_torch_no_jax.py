@@ -9,7 +9,10 @@ CPU `estimate_pose` in bf16 and in int8 (calibrated on the frame), the demo
 CLI with and without --int8, trains one CPU step through the port's
 `train` verb, and drives the graph engine: a tiny DeeperCut prototxt
 through the serving chain with `quantize_int8`, the CLI's `time` and `test`
-verbs and a `Classifier` on examples/imagenet/caffenet_deploy.prototxt.
+verbs and a `Classifier` on examples/imagenet/caffenet_deploy.prototxt;
+then its training: `train` on a DummyData solver (GraphSolver),
+`compat.get_solver` with a step and a test net, `Net.backward`, and the
+port's PCKh (`pose.evaluate`).
 """
 
 import os
@@ -77,8 +80,33 @@ pred = Classifier(sys.argv[5], image_dims=(256, 256), raw_scale=255, device="cpu
     [np.random.RandomState(2).rand(300, 280, 3).astype(np.float32)])
 assert pred.shape == (1, 8) and abs(float(pred.sum()) - 1) < 1e-4, pred
 assert int8_conv.im2col_launches == int8_conv.epilogue_launches == conv_epilogue.launches == 0
+
+from deepcut_tpu_torch import compat
+from deepcut_tpu_torch.pose.evaluate import pckh
+assert cli.main(["train", "-solver", sys.argv[6], "-device", "cpu"]) == 0
+solver = compat.get_solver(sys.argv[6], device="cpu")
+solver.step(2)
+assert solver.iter == 2 and np.isfinite(solver.smoothed_loss)
+out = solver.test_nets[0].forward()
+solver.net.forward()
+grads = solver.net.backward(diffs=["ip"])
+assert solver.net.blobs["ip"].diff.shape == (4, 3) and "acc" in out
+assert pckh(np.zeros((1, 2, 2)), np.ones((1, 2, 2)), np.array([4.0])).mean == 1.0
 assert not BLOCKED & {m.split(".")[0] for m, mod in sys.modules.items() if mod is not None}
 print("modules", len(names))
+"""
+
+GRAPH_NET = """
+name: "g"
+layer { name: "data" type: "DummyData" top: "data" top: "label"
+  dummy_data_param { shape { dim: 4 dim: 6 } shape { dim: 4 }
+    data_filler { type: "gaussian" std: 1 } data_filler { type: "constant" value: 1 } } }
+layer { name: "ip" type: "InnerProduct" bottom: "data" top: "ip"
+  inner_product_param { num_output: 3 weight_filler { type: "xavier" } } }
+layer { name: "drop" type: "Dropout" bottom: "ip" top: "ip" }
+layer { name: "loss" type: "SoftmaxWithLoss" bottom: "ip" bottom: "label" top: "loss" }
+layer { name: "acc" type: "Accuracy" bottom: "ip" bottom: "label" top: "acc"
+  include { phase: TEST } }
 """
 
 
@@ -87,10 +115,16 @@ def test_port_imports_and_runs_without_jax(tmp_path):
 
     solver = write_solver(tmp_path, write_dataset(tmp_path, n=2), 1)
     weights = write_tamed_weights(tmp_path / "tamed.caffemodel")
+    (tmp_path / "g.prototxt").write_text(GRAPH_NET)
+    graph_solver = tmp_path / "g_solver.prototxt"
+    graph_solver.write_text(f'net: "{tmp_path / "g.prototxt"}"\nbase_lr: 0.1\nmax_iter: 2\n'
+                            f'display: 1\ntest_iter: 1\ntest_interval: 2\n'
+                            f'snapshot_prefix: "{tmp_path / "g"}"\n')
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT, str(tmp_path / "f.png"), str(tmp_path / "p.npz"),
-         str(solver), str(weights), str(REPO / "examples/imagenet/caffenet_deploy.prototxt")],
+         str(solver), str(weights), str(REPO / "examples/imagenet/caffenet_deploy.prototxt"),
+         str(graph_solver)],
         env=env, capture_output=True, text=True, timeout=300, cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stdout + proc.stderr[-4000:]
     assert int(proc.stdout.split("modules")[-1]) >= 35
@@ -100,3 +134,4 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     assert pose.shape == (5, 3)
     assert (tmp_path / "p.npz_vis.png").is_file()
     assert np.load(tmp_path / "p.npz.int8.npz")["pose"].shape == (5, 3)
+    assert "Testing net (#0)" in proc.stdout and (tmp_path / "g_iter_2.caffemodel").is_file()

@@ -174,8 +174,8 @@ def test_caffemodel_export_reads_back(tmp_path):
 def test_eval_hook_with_port_estimator(tmp_path):
     """eval_fn runs on test_interval boundaries before the update, with the
     live params; here it scores the port's PoseEstimator (CPU decode) with
-    the JAX package's jax-free PCKh harness."""
-    from deepcut_tpu.pose.evaluate import evaluate_estimator
+    the port's PCKh harness."""
+    from deepcut_tpu_torch.pose.evaluate import evaluate_estimator
     from deepcut_tpu_torch.pose.estimate import PoseEstimator
 
     rng = np.random.RandomState(3)
