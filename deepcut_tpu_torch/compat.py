@@ -24,8 +24,8 @@ backed by the port's `core.graph.Net` on one device (the card unless
   pycaffe's. `Solver` / `get_solver` and the six typed solver classes run
   `solver.solver.GraphSolver`, with a live `solver.net` and
   `solver.test_nets`.
-- `save` to ``.h5`` belongs to the data slice of the port and raises
-  `NotImplementedError`.
+- `save` writes a ``.caffemodel``, or Caffe's HDF5 weight layout to a
+  ``.h5`` / ``.hdf5`` path (h5py needed).
 """
 
 from __future__ import annotations
@@ -337,17 +337,18 @@ class Net:
         self._net.load_weights(weights_path)
 
     def save(self, path: str) -> None:
-        """Write the weights as a binary NetParameter (``.caffemodel``), in
-        Caffe's blob layouts."""
+        """Write the weights in Caffe's blob layouts, by extension as
+        Net::Snapshot: ``.h5`` / ``.hdf5`` in Caffe's HDF5 layout
+        (net.cpp:948-980, h5py needed), else a binary NetParameter."""
         from deepcut_tpu_torch.models.convert import graph_params_to_numpy
-        from deepcut_tpu_torch.proto.caffemodel import save_caffemodel
+        from deepcut_tpu_torch.proto.caffemodel import save_caffemodel, save_hdf5_weights
 
+        host = graph_params_to_numpy(self._net.params, self._net.layer_types())
         if path.endswith((".h5", ".hdf5")):
-            raise NotImplementedError("Net.save to HDF5 belongs to the engine's data slice of "
-                                      "the port, which is not ported yet (the card's machine "
-                                      "has no h5py); save a .caffemodel")
-        save_caffemodel(path, graph_params_to_numpy(self._net.params, self._net.layer_types()),
-                        net_name=self._net.name, deconv_names=self._net.deconv_names())
+            save_hdf5_weights(path, host, deconv_names=self._net.deconv_names())
+        else:
+            save_caffemodel(path, host, net_name=self._net.name,
+                            deconv_names=self._net.deconv_names())
 
     def reshape(self) -> None:  # shapes follow each forward's inputs
         pass

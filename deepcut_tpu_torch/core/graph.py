@@ -33,8 +33,14 @@ flags. Dropout, STOCHASTIC pooling and random DummyData tops draw from a
 `torch.Generator` seeded by (the net's seed, the iteration, the layer's
 index), so a step's draws are fixed by the seed and the iteration and
 survive a snapshot and restore; they are not the JAX package's draws.
-MemoryData feeds the net through `set_input_arrays`; the other data layers
-belong to the data slice of the port and raise `NotImplementedError`.
+
+Data layers (`data.layers.DATA_SOURCES`: Data on LMDB or LevelDB,
+ImageData, HDF5Data, WindowData, PoseData, MemoryData) become host-side
+batch producers that a forward or a train step pulls from for the tops it
+is not handed; all but MemoryData (fed by `set_input_arrays`) run behind a
+3-deep prefetch thread, stopped by `Net.close`. Their numpy batches move to
+the net's device. HDF5Output layers become sinks that collect their
+bottoms after each forward (`hdf5_sinks`, written by ``sink.save()``).
 """
 
 from __future__ import annotations
@@ -54,13 +60,6 @@ from deepcut_tpu_torch.proto import text_format
 from deepcut_tpu_torch.proto.text_format import PbNode
 
 BF16 = torch.bfloat16
-# the data layers of `deepcut_tpu.data.layers` (DATA_SOURCES) and the HDF5
-# sink that the port does not run yet: its data slice, item 9c of ROADMAP.md
-DATA_SLICE_TYPES = ("Data", "ImageData", "HDF5Data", "WindowData", "PoseData", "HDF5Output")
-DATA_SLICE = ("belongs to the data slice of the port (item 9c of ROADMAP.md: the Data, "
-              "ImageData, HDF5Data and WindowData sources, their stores and HDF5Output), "
-              "which is not ported yet; feed the net through MemoryData, DummyData or "
-              "Input tops")
 
 # V1 LayerType enum names -> V2 type strings (upgrade_proto.cpp UpgradeV1LayerType)
 _V1_TYPE_NAMES = {
@@ -256,11 +255,13 @@ class Net:
                         self.input_shapes[top] = tuple(
                             int(d) for d in in_shapes[min(i, len(in_shapes) - 1)].get_list("dim"))
 
-        from deepcut_tpu_torch.data.layers import MemoryDataSource
+        from deepcut_tpu_torch.data.layers import (
+            DATA_SOURCES, PREFETCHED_TYPES, HDF5OutputSink, PrefetchedSource)
 
         self._plan: List[Tuple[Callable, LayerSpec]] = []
         self._silenced: set = set()
         self.data_sources: Dict[str, Any] = {}
+        self.hdf5_sinks: List[HDF5OutputSink] = []
         self._peeked: Dict[str, List[np.ndarray]] = {}
         for spec in self.layer_specs:
             if spec.type == "Silence":  # consumes its bottoms, emits nothing
@@ -268,12 +269,15 @@ class Net:
                 continue
             if spec.type == "Input":
                 continue
-            if spec.type == "MemoryData":
-                self.data_sources[spec.name] = MemoryDataSource(spec, phase)
+            if spec.type in DATA_SOURCES:
+                src = DATA_SOURCES[spec.type](spec, phase)
+                if spec.type in PREFETCHED_TYPES:
+                    src = PrefetchedSource(src)
+                self.data_sources[spec.name] = src
                 continue
-            if spec.type in DATA_SLICE_TYPES:
-                raise NotImplementedError(
-                    f"layer type {spec.type!r} (layer {spec.name!r}) {DATA_SLICE}")
+            if spec.type == "HDF5Output":
+                self.hdf5_sinks.append(HDF5OutputSink(spec))
+                continue
             self._plan.append((L.build(spec, phase, compute_dtype), spec))
 
         self.params: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -811,6 +815,8 @@ class Net:
             self.blobs = result
         else:  # partial run: merge, keeping untouched blobs for later slices
             self.blobs.update(result)
+        for sink in self.hdf5_sinks:
+            sink.append([result[b] for b in sink.bottoms if b in result])
         return result
 
     def debug_info(self, **inputs) -> Dict[str, float]:
@@ -1044,6 +1050,12 @@ class Net:
                 src.set_arrays(data, labels)
                 return
         raise RuntimeError("net has no MemoryData layer")
+
+    def close(self) -> None:
+        """Stop the data layers' prefetch threads and release their stores
+        and worker pools. A later pull starts a new thread."""
+        for src in self.data_sources.values():
+            src.close()
 
     def _pull_data_layers(self, inputs: Dict[str, Any]) -> None:
         """Fill `inputs` from the data sources for the tops not supplied

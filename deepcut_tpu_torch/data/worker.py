@@ -1,7 +1,9 @@
 """Process-parallel decode/warp/canvas workers for the pose input pipeline.
 
 The port's own copy of `deepcut_tpu.data.worker` (jax-free; held against the original
-by tests/test_torch_data.py).
+by tests/test_torch_data.py). One difference: `CanvasPool.close` lets the work
+in flight finish before it shuts the pool down, where the original
+terminates it and can hang.
 
 The thread pool in `PoseDataSource(workers=N)` only helps while PIL/cv2 hold
 the GIL released; the numpy canvas work and ~9 ms/img JPEG decode leave
@@ -29,6 +31,8 @@ import numpy as np
 
 # set by _init in each worker process
 _LOADER: Optional[Callable[[str], np.ndarray]] = None
+# seconds `CanvasPool.close` waits for each batch in flight
+_CLOSE_WAIT_S = 30.0
 
 
 def _init(loader_bytes: bytes) -> None:
@@ -77,6 +81,7 @@ class CanvasPool:
         ctx = mp.get_context("spawn")  # never fork a process holding a CUDA context
         self._pool = ctx.Pool(int(workers), initializer=_init,
                               initargs=(loader_bytes,))
+        self._in_flight: List[Any] = []
 
     def map(self, tasks, decode: bool = False) -> List[np.ndarray]:
         """decode=False: canvas tasks (path, M, scale, ih, iw, uint8);
@@ -87,9 +92,23 @@ class CanvasPool:
     def map_async(self, tasks, decode: bool = False):
         """Overlap handle: schedule now, `.get()` later (lets the producer
         thread draw the NEXT batch's RNG phase while workers decode)."""
-        return self._pool.map_async(_decode_task if decode else _task,
-                                    tasks, chunksize=1)
+        self._in_flight = [r for r in self._in_flight if not r.ready()]
+        result = self._pool.map_async(_decode_task if decode else _task,
+                                      tasks, chunksize=1)
+        self._in_flight.append(result)
+        return result
 
     def close(self) -> None:
-        self._pool.terminate()
+        """Let the batches still in flight finish, then shut the workers
+        down in order (close + join). Terminating a pool while a
+        `map_async` still feeds it can leave its task handler waiting
+        forever for the task queue's lock; `terminate` is kept for work
+        that outlives _CLOSE_WAIT_S."""
+        for result in self._in_flight:
+            result.wait(_CLOSE_WAIT_S)
+        if all(r.ready() for r in self._in_flight):
+            self._pool.close()
+        else:
+            self._pool.terminate()
+        self._in_flight = []
         self._pool.join()

@@ -1,9 +1,10 @@
 """`.caffemodel` (binary NetParameter) reader/writer + pytree converter.
 
 The port's own copy of `deepcut_tpu.proto.caffemodel` (jax-free; held against the original
-by tests/test_torch_data.py). Only the reader and the
-writer that `models.convert` calls are kept (no solverstate codec, no HDF5
-writer).
+by tests/test_torch_data.py and tests/test_torch_data_layers.py): the
+`.caffemodel` reader and writer, the HDF5 weight files (h5py imported only
+there) and the `.solverstate` codec. The writers take params in the JAX
+package's layouts (`models.convert.graph_params_to_numpy` gives them).
 
 Mirrors the reference's weight-loading semantics
 (Net::CopyTrainedLayersFrom, src/caffe/net.cpp:805-846): layers are matched
@@ -310,6 +311,34 @@ def _entry_to_blobs(name: str, entry: Dict[str, np.ndarray],
     return [np.asarray(v) for v in entry.values()]
 
 
+def save_hdf5_weights(path: str, params: Dict[str, Dict[str, np.ndarray]],
+                      *, deconv_names=(),
+                      diffs: Optional[Dict[str, Dict[str, np.ndarray]]] = None,
+                      ) -> None:
+    """Write weights in Caffe's HDF5 layout (Net::ToHDF5, net.cpp:948-980):
+    group 'data' -> one group per layer -> datasets '0', '1', ... in Caffe
+    blob layouts — interchangeable with reference `.caffemodel.h5` files.
+    `deconv_names`: Deconvolution layer names (their 4-D weights export in
+    Caffe's (Cin,Cout/g,kh,kw) order). `diffs`: optional gradient pytree,
+    written under a sibling 'diff' group (ToHDF5's write_diff branch)."""
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        data = f.create_group("data")
+        diff_group = f.create_group("diff") if diffs else None
+        for name, entry in params.items():
+            g = data.create_group(name)
+            for i, blob in enumerate(
+                    _entry_to_blobs(name, entry, deconv_names)):
+                g.create_dataset(str(i), data=np.asarray(blob, np.float32))
+            if diffs and name in diffs:
+                dg = diff_group.create_group(name)
+                for i, blob in enumerate(
+                        _entry_to_blobs(name, diffs[name], deconv_names)):
+                    dg.create_dataset(str(i),
+                                      data=np.asarray(blob, np.float32))
+
+
 def load_hdf5_weights(path: str) -> "OrderedDict[str, List[Blob]]":
     """Read a Caffe `.h5` weight file (CopyTrainedLayersFromHDF5 layout)."""
     import h5py
@@ -331,6 +360,37 @@ def load_hdf5_weights(path: str) -> "OrderedDict[str, List[Blob]]":
             if blobs:
                 out[name] = blobs
     return out
+
+
+def encode_solverstate(it: int, history: List[np.ndarray], *,
+                       learned_net: str = "", current_step: int = 0) -> bytes:
+    """SolverState binaryproto (caffe.proto:246-251): iter, learned_net,
+    repeated history BlobProto, current_step — the reference's
+    SGDSolver::SnapshotSolverStateToBinaryProto layout. `history` is a flat
+    blob list; both packages write the solver state's per-blob leaves in
+    the JAX package's layouts, each dict's keys sorted (the order
+    jax.tree_util flattens them in), state entry after state entry
+    (SGD/Nesterov/AdaGrad/RMSProp: history; AdaDelta: history then
+    update_sq; Adam: m then v — mirroring how the reference's solvers stack
+    their state into history_)."""
+    enc = wire.Encoder()
+    enc.varint(1, int(it))
+    if learned_net:
+        enc.string(2, learned_net)
+    for arr in history:
+        enc.message(3, _encode_blob(np.asarray(arr, np.float32)))
+    enc.varint(4, int(current_step))
+    return enc.tobytes()
+
+
+def decode_solverstate(buf: bytes) -> Tuple[int, str, List[Blob], int]:
+    """-> (iter, learned_net, history blobs, current_step)."""
+    fields = wire.decode(buf)
+    it = int(fields[1][0][1]) if 1 in fields else 0
+    learned = wire.read_string(fields[2][0]) if 2 in fields else ""
+    history = [_decode_blob(v) for _, v in fields.get(3, [])]
+    step = int(fields[4][0][1]) if 4 in fields else 0
+    return it, learned, history, step
 
 
 def save_caffemodel(path: str, params: Dict[str, Dict[str, np.ndarray]], *,

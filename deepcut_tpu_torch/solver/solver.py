@@ -8,12 +8,13 @@ hand-written backward passes, with iter_size accumulation on the host, the
 smoothed-loss display line, the `test_interval` eval hook, SIGINT -> stop /
 SIGHUP -> snapshot, snapshots and restore. `GraphSolver` runs any prototxt
 net through the graph engine (`core.graph.Net.make_train_step`), with its
-test nets sharing the trained layers, the data layers it can feed
-(MemoryData, DummyData) or staged inputs, and the same loop controls.
+test nets sharing the trained layers, fed by their data layers or staged
+inputs, and the same loop controls.
 
 Snapshots are the JAX package's: a ``.npz`` with ``params/<layer>/<key>``
 and ``state/...`` entries in its layouts (HWIO conv weights), so either
-package restores the other's, and a reference-readable ``.caffemodel``.
+package restores the other's, and a reference-readable ``.caffemodel``
+(GraphSolver: or ``.caffemodel.h5``) with its ``.solverstate``.
 """
 
 from __future__ import annotations
@@ -308,10 +309,11 @@ class GraphSolver:
     train_net_param, with train_state's stages and level), or given as a
     `core.graph.Net` or a model definition; it computes in f32
     (``compute_dtype=None``), with TF32 off in the step. Its inputs come
-    from its data layers (MemoryData, DummyData) and from `extra_inputs`
-    ({name: NCHW array}, staged over them on every step, as pycaffe's
-    persistent blobs); test nets (Solver::InitTestNets) share the trained
-    layers and take `extra_test_inputs`."""
+    from its data layers (Data, ImageData, HDF5Data, WindowData, PoseData,
+    MemoryData, DummyData) and from `extra_inputs` ({name: NCHW array},
+    staged over them on every step, as pycaffe's persistent blobs); test
+    nets (Solver::InitTestNets) share the trained layers, pull from their
+    own data layers and take `extra_test_inputs`."""
 
     _STATE_KEYS = ("history", "update_sq", "m", "v")
 
@@ -489,7 +491,13 @@ class GraphSolver:
         snapshot (unless snapshot_after_train is false or the interval just
         wrote one; it also needs a snapshot interval or prefix), then a
         display forward and a test pass where the last iteration lands on
-        their intervals."""
+        their intervals. The data layers' prefetch threads stop at the end."""
+        try:
+            self._solve()
+        finally:
+            self.close()
+
+    def _solve(self) -> None:
         cfg = self.params_cfg
         self.step(cfg.max_iter - self.iter)
         if (cfg.snapshot_after_train and (cfg.snapshot or cfg.has_snapshot_prefix)
@@ -506,40 +514,76 @@ class GraphSolver:
             self.test_all()
         self.log("Optimization Done.")
 
+    def close(self) -> None:
+        """Stop the data layers' prefetch threads of the train and test nets."""
+        self.net.close()
+        for tnet, _ in self._test_nets or ():
+            tnet.close()
+
     # -- snapshot / restore (solver.cpp:411-481) ---------------------------
+    def _state_leaves(self):
+        """The solver state's per-blob leaves as the ``.solverstate``
+        carries them, ``(state key, layer, blob key, array)``: state entry
+        after state entry (`_STATE_KEYS`), each in the JAX package's layouts
+        with layer names and keys sorted (the order jax.tree_util flattens
+        its dicts in)."""
+        types = self.net.layer_types()
+        for key in self._STATE_KEYS:
+            if key in self.state:
+                tree = graph_params_to_numpy(self.state[key], types)
+                for n in sorted(tree):
+                    for k in sorted(tree[n]):
+                        yield key, n, k, tree[n][k]
+
     def snapshot(self, export_caffemodel: bool = True) -> str:
         """Writes the ``.npz`` (params and solver state in the JAX package's
         keys and layouts, for restore) and, by default, the reference's
-        ``.caffemodel``, with each blob's last update as its diff under
-        `snapshot_diff`."""
-        from deepcut_tpu_torch.core.graph import DATA_SLICE
-        from deepcut_tpu_torch.proto.caffemodel import save_caffemodel as save_netparameter
+        model and state pair (solver.cpp:411-469): the weights as a
+        ``.caffemodel`` (``.caffemodel.h5`` under ``snapshot_format:
+        HDF5``, h5py needed), with each blob's last update as its diff under
+        `snapshot_diff`, and a ``.solverstate`` whose learned_net names
+        that file."""
+        from deepcut_tpu_torch.proto.caffemodel import (
+            encode_solverstate, save_caffemodel as save_netparameter, save_hdf5_weights)
 
         fmt = self.params_cfg.snapshot_format.upper()
-        if fmt != "BINARYPROTO":
+        if fmt not in ("BINARYPROTO", "HDF5"):
             raise NotImplementedError(
-                f"snapshot_format {fmt}: the graph solver writes .npz + .caffemodel snapshots; "
-                f"HDF5 {DATA_SLICE}" if fmt == "HDF5" else
-                f"snapshot_format {fmt}: the port writes .npz + .caffemodel snapshots only")
+                f"snapshot_format {fmt}: the port writes BINARYPROTO or HDF5 snapshots")
         types = self.net.layer_types()
         prefix = f"{self.params_cfg.snapshot_prefix}_iter_{self.iter}"
         save_checkpoint(f"{prefix}.npz", self.net.params, self.state, layer_types=types)
         self.log(f"Snapshotting to {prefix}.npz")
         if export_caffemodel:
+            host = graph_params_to_numpy(self.net.params, types)
             diffs = (graph_params_to_numpy(self._last_diff, types)
                      if self.params_cfg.snapshot_diff and self._last_diff is not None else None)
-            save_netparameter(f"{prefix}.caffemodel",
-                              graph_params_to_numpy(self.net.params, types),
-                              net_name=self.net.name, deconv_names=self.net.deconv_names(),
-                              diffs=diffs)
-            self.log(f"Snapshotting model weights to {prefix}.caffemodel")
+            if fmt == "HDF5":
+                model_path = f"{prefix}.caffemodel.h5"
+                save_hdf5_weights(model_path, host, deconv_names=self.net.deconv_names(),
+                                  diffs=diffs)
+            else:
+                model_path = f"{prefix}.caffemodel"
+                save_netparameter(model_path, host, net_name=self.net.name,
+                                  deconv_names=self.net.deconv_names(), diffs=diffs)
+            self.log(f"Snapshotting model weights to {model_path}")
+            with open(f"{prefix}.solverstate", "wb") as f:
+                f.write(encode_solverstate(self.iter, [a for *_, a in self._state_leaves()],
+                                           learned_net=model_path))
+            self.log(f"Snapshotting solver state to {prefix}.solverstate")
         return f"{prefix}.npz"
 
     @torch.no_grad()
     def restore(self, path: str) -> None:
-        """Resume from a ``.npz`` of either package: the params are copied
-        into the live tensors (the test nets share them), the solver state
-        moves to the device."""
+        """Resume, by extension as Solver::Restore (solver.cpp:471-481): a
+        ``.solverstate`` of either package (its history blobs, its
+        iteration, and the weights of the learned_net it names), or a
+        ``.npz`` of either package. The params are copied into the live
+        tensors (the test nets share them), the solver state moves to the
+        device."""
+        if path.endswith(".solverstate"):
+            self._restore_solverstate(path)
+            return
         params, state = load_checkpoint(path, layer_types=self.net.layer_types())
         live = self.net.params
         want = {(n, k) for n, e in live.items() for k in e}
@@ -561,6 +605,28 @@ class GraphSolver:
             raise ValueError(f"{path}: solver state {sorted(new_state)} does not fit "
                              f"{self.params_cfg.config.solver_type} ({sorted(self.state)})")
         self.state = new_state
+        self.log(f"Restored from {path} at iter {self.iter}")
+
+    def _restore_solverstate(self, path: str) -> None:
+        from deepcut_tpu_torch.proto.caffemodel import decode_solverstate
+
+        with open(path, "rb") as f:
+            it, learned, blobs, _ = decode_solverstate(f.read())
+        leaves = list(self._state_leaves())
+        if len(blobs) != len(leaves):
+            raise ValueError(f"{path}: {len(blobs)} history blobs, the solver state holds "
+                             f"{len(leaves)}")
+        filled: Dict[str, Dict[str, Dict[str, np.ndarray]]] = {}
+        for (key, n, k, like), blob in zip(leaves, blobs):
+            filled.setdefault(key, {}).setdefault(n, {})[k] = blob.data.reshape(like.shape)
+        types = self.net.layer_types()
+        for key, tree in filled.items():
+            for n, e in graph_params_from_numpy(tree, types).items():
+                for k, v in e.items():
+                    self.state[key][n][k].copy_(v)
+        self.state["iter"] = int(it)
+        if learned and os.path.exists(learned):
+            self.net.load_weights(learned)
         self.log(f"Restored from {path} at iter {self.iter}")
 
 

@@ -2,7 +2,7 @@
 originals, on the same inputs: `proto.text_format`, `proto.caffemodel`,
 `data.window_file`, the host half of `pose.targets_device`, `pose.targets`
 (its numpy and C++ rasterizers), `pose.augment`, `data.pipeline`
-(`PoseDataSource`, `Prefetcher`).
+(`PoseDataSource`, `Prefetcher`, the process pool's bounded close).
 
 Tolerance: none. The copies run the same numpy code on the same inputs and
 the same seeded random streams, so every parse, file, array and batch is
@@ -211,6 +211,34 @@ def test_pose_data_source_batches_match_through_the_native_rasterizer(tmp_path, 
     kw = dict(regress_to_other=True, fg_fraction=0.25, bg_threshold=30.0)
     _equal_trees(_batches(t_pipeline, index, t_targets.TargetConfig(**kw), "host_targets"),
                  _batches(j_pipeline, index, j_targets.TargetConfig(**kw), "host_targets"))
+
+
+def test_process_pool_closes_mid_pipeline_within_a_bounded_wait(tmp_path):
+    """The port's process pool (2 workers) closed while the pipelined
+    `batches()` stream still has a batch in flight: `close` lets that work
+    finish and shuts the workers down, where terminating the pool could
+    leave its task handler waiting forever. `close` runs in a daemon
+    thread joined with a 60 s timeout, so a regression fails here instead
+    of hanging the run. The batches equal the serial source's."""
+    import threading
+
+    recs = _records(np.random.RandomState(9), n=3, root=str(tmp_path))
+    _write_frames(tmp_path, recs, seed=2)
+    cfg = t_targets.TargetConfig(location_refinement=True)
+    serial = t_pipeline.PoseDataSource(recs, cfg, seed=5, bucket_step=32, uint8_images=True)
+    piped = t_pipeline.PoseDataSource(recs, cfg, seed=5, bucket_step=32, uint8_images=True,
+                                      workers=2, worker_mode="process")
+    closer = threading.Thread(target=piped.close, daemon=True)
+    try:
+        stream = piped.batches(2)
+        for _ in range(2):
+            _equal_trees(next(stream), serial.next_batch(2))
+        assert piped._proc_pool._in_flight   # the next batch is in flight
+    finally:
+        closer.start()
+        closer.join(timeout=60)
+    assert not closer.is_alive(), "CanvasPool.close hung with work in flight"
+    assert piped._proc_pool is None
 
 
 def test_prefetcher_delivers_the_sources_batches_and_raises_its_errors():

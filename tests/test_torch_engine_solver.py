@@ -14,12 +14,18 @@ generic prototxt net, on the CPU, against the JAX package's where both run.
   tests/test_compat_solver.py's facade cases.
 - A step's Dropout masks are fixed by the seed and the iteration, so a
   restored solver takes the step the uninterrupted one took.
-- `cli train` runs a DummyData solver; a Data-layer net raises and names
-  the data slice.
+- `cli train` runs a DummyData solver.
+- The data slice: a LeNet-width net fed by a Data layer on an LMDB (its
+  test net on a LevelDB) trains 5 steps on the same trajectory as the JAX
+  package's (loss and params within 2e-5 of each blob's scale), a
+  `.solverstate` written by either package restores in the other with the
+  same history and iteration, and `snapshot_format: HDF5` writes the same
+  weights as the `.caffemodel`.
 """
 
 import dataclasses
 import glob
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -175,9 +181,21 @@ def test_caffemodel_export_and_snapshot_diff(tmp_path):
             np.testing.assert_allclose(b2.diff, b1.data - b2.data, rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(m2["ip"][0].data.reshape(3, 6),
                                   solver.net.params["ip"]["w"].numpy())
+    pytest.importorskip("h5py")
+    from deepcut_tpu_torch.proto.caffemodel import decode_solverstate
+
     sp_h5 = dataclasses.replace(sp, snapshot_format="HDF5")
-    with pytest.raises(NotImplementedError, match="data slice"):
-        GraphSolver(sp_h5, device="cpu", **QUIET).snapshot()
+    h5_solver = GraphSolver(sp_h5, device="cpu", **QUIET)
+    h5_solver.net.params = solver.net.params
+    h5_solver.state["iter"] = 2
+    h5_solver.snapshot()
+    h5 = load_caffemodel(str(tmp_path / "sd_iter_2.caffemodel.h5"))
+    assert list(h5) == list(m2)
+    for name, blobs in m2.items():
+        for a, b in zip(h5[name], blobs):
+            np.testing.assert_array_equal(a.data.reshape(b.data.shape), b.data)
+    it, learned, _, _ = decode_solverstate((tmp_path / "sd_iter_2.solverstate").read_bytes())
+    assert it == 2 and learned == f"{tmp_path}/sd_iter_2.caffemodel.h5"
 
 
 def test_multiple_test_nets_with_test_state_and_ordering(tmp_path):
@@ -412,3 +430,106 @@ def test_cli_train_graph_solver(tmp_path, capsys):
         assert (tmp_path / "c_iter_6.npz").is_file()
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+# -- the data slice ----------------------------------------------------------------------
+def lenet_data(tmp_path):
+    """A LeNet train net (BVLC widths 20 / 50 / 500 / 10, batch 32) fed by
+    a Data layer on an LMDB of 40 seeded 28x28 digits, its test net by one
+    on a LevelDB of 16, as examples/mnist/lenet_train.prototxt."""
+    from deepcut_tpu.data.datum import Datum
+    from deepcut_tpu.data.leveldb_store import LevelDBWriter
+    from deepcut_tpu.data.lmdb_store import LMDBWriter
+
+    rng = np.random.RandomState(0)
+    for writer, name, n in ((LMDBWriter, "train_lmdb", 40), (LevelDBWriter, "val_leveldb", 16)):
+        with writer(str(tmp_path / name)) as w:
+            for i in range(n):
+                img = rng.randint(0, 256, (1, 28, 28), np.uint8)
+                w.put(f"{i:08d}".encode(), Datum.from_array(img, i % 10).encode())
+    text = (Path(__file__).resolve().parents[1] / "examples/mnist/lenet_train.prototxt").read_text()
+    text = text.replace('source: "examples/mnist/train_lmdb"', f'source: "{tmp_path}/train_lmdb"')
+    text = text.replace("  top: \"label\"\n", "  top: \"label\"\n  include { phase: TRAIN }\n", 1)
+    text += (f'layer {{ name: "mnist" type: "Data" top: "data" top: "label" include {{ phase: TEST }} '
+             f'transform_param {{ scale: 0.00390625 }} data_param {{ source: "{tmp_path}/val_leveldb" '
+             'batch_size: 8 backend: LEVELDB } }\n'
+             'layer { name: "accuracy" type: "Accuracy" bottom: "ip2" bottom: "label" '
+             'top: "accuracy" include { phase: TEST } }\n')
+    net = write(tmp_path, "lenet.prototxt", text)
+    return write(tmp_path, "lenet_solver.prototxt", f"""
+net: "{net}"
+base_lr: 0.01 momentum: 0.9 weight_decay: 0.0005 lr_policy: "inv" gamma: 0.0001 power: 0.75
+display: 0 max_iter: 5 snapshot: 0 test_iter: 2 test_interval: 100 test_initialization: false
+snapshot_prefix: "{tmp_path}/lenet" random_seed: 1
+""")
+
+
+def test_lmdb_lenet_trajectory_matches_jax(tmp_path):
+    """5 SGD steps of LeNet from an LMDB, each package pulling its own
+    batches through its Data layer: the same losses and params within 2e-5
+    of each blob's scale, and the same test outputs from the LevelDB."""
+    sol = lenet_data(tmp_path)
+    port = GraphSolver(SolverParams.from_prototxt(str(sol)), device="cpu", **QUIET)
+    jx = JSolver(JParams.from_prototxt(str(sol)), **QUIET)
+    jx.net.params = jax.tree_util.tree_map(
+        np.asarray, graph_params_to_numpy(port.net.params, port.net.layer_types()))
+    try:
+        for _ in range(5):
+            port.step(1)
+            jx.step(1)
+            lt, lj = port._loss_window[-1], jx._loss_window[-1]
+            assert abs(lt - lj) <= 2e-5 * abs(lj), (lt, lj)
+        assert port.iter == jx.iter == 5
+        assert_trees_close(graph_params_to_numpy(port.net.params, port.net.layer_types()),
+                           jax.tree_util.tree_map(np.asarray, jx.net.params), "param")
+        (got,), (want,) = port.test_all(), jx.test_all()
+        assert sorted(got) == sorted(want) == ["accuracy", "loss"]
+        assert got["accuracy"] == want["accuracy"]
+        assert abs(got["loss"] - want["loss"]) <= 2e-5 * abs(want["loss"])
+    finally:
+        port.close()
+        for net in [jx.net] + [n for n, _ in jx._init_test_nets()]:
+            for src in net.data_sources.values():
+                src.stop()
+    assert all(src._pf is None for src in port.net.data_sources.values())
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+@pytest.mark.parametrize("rule", ["SGD", "AdaDelta"])
+def test_solverstate_restores_across_packages(tmp_path, writer, rule):
+    """A `.solverstate` (history blobs in the JAX package's layouts, dicts
+    in sorted key order, AdaDelta's history then update_sq) written by one
+    package restores in the other: the same history bit for bit, the same
+    iteration, the learned_net's weights, then the same 2 more steps."""
+    from deepcut_tpu.proto.caffemodel import decode_solverstate as j_decode
+    from deepcut_tpu_torch.proto.caffemodel import decode_solverstate
+
+    tsp, jsp, extra = _interchange_solvers(tmp_path, rule)
+    port, jx = GraphSolver(tsp, device="cpu", **QUIET), JSolver(jsp, **QUIET)
+    jx.net.params = jax.tree_util.tree_map(
+        np.asarray, graph_params_to_numpy(port.net.params, port.net.layer_types()))
+    for s in (port, jx):
+        s.extra_inputs = dict(extra)
+    first, second = (port, jx) if writer == "port" else (jx, port)
+    first.step(3)
+    first.snapshot()
+    path = f"{tmp_path}/snap_iter_3.solverstate"
+    buf = open(path, "rb").read()
+    it, learned, blobs, _ = decode_solverstate(buf)
+    assert (it, learned) == j_decode(buf)[:2] == (3, f"{tmp_path}/snap_iter_3.caffemodel")
+    assert len(blobs) == (8 if rule == "AdaDelta" else 4)
+    second.restore(path)
+    assert second.iter == first.iter == 3
+    types = port.net.layer_types()
+    for key in ("history", "update_sq") if rule == "AdaDelta" else ("history",):
+        got = graph_params_to_numpy(port.state[key], types)
+        want = jax.tree_util.tree_map(np.asarray, jx.state[key])
+        for n, e in want.items():
+            for k, v in e.items():
+                np.testing.assert_array_equal(got[n][k], v, err_msg=f"{key} {n}/{k}")
+    assert_trees_close(graph_params_to_numpy(port.net.params, types),
+                       jax.tree_util.tree_map(np.asarray, jx.net.params), "param")
+    first.step(2)
+    second.step(2)
+    assert_trees_close(graph_params_to_numpy(port.net.params, types),
+                       jax.tree_util.tree_map(np.asarray, jx.net.params), "param")

@@ -219,8 +219,17 @@ def test_compat_net_matches_jax(model, tmp_path):
     # input diff of a loss-free net against injected top diffs
     dprob = np.ones_like(tnet.blobs["prob"].data)
     assert tnet.backward(prob=dprob)["data"].shape == tnet.blobs["data"].data.shape
-    with pytest.raises(NotImplementedError, match="data slice"):
-        tnet.save(str(tmp_path / "w.h5"))
+    # save to .h5: Caffe's HDF5 layout, the same datasets as the JAX facade writes
+    h5py = pytest.importorskip("h5py")
+    tnet.save(str(tmp_path / "t.h5"))
+    jnet.save(str(tmp_path / "j.h5"))
+    with h5py.File(tmp_path / "t.h5", "r") as a, h5py.File(tmp_path / "j.h5", "r") as b:
+        assert list(a["data"]) == list(b["data"]) == [n for n in tnet.params]
+        for name in a["data"]:
+            for i in a["data"][name]:
+                np.testing.assert_array_equal(a["data"][name][i][:], b["data"][name][i][:])
+    other.copy_from(str(tmp_path / "t.h5"))
+    np.testing.assert_array_equal(other.params["fc"][0].data, tnet.params["fc"][0].data)
 
 
 # -- Classifier / Detector ------------------------------------------------------------

@@ -11,8 +11,9 @@ CLI with and without --int8, trains one CPU step through the port's
 through the serving chain with `quantize_int8`, the CLI's `time` and `test`
 verbs and a `Classifier` on examples/imagenet/caffenet_deploy.prototxt;
 then its training: `train` on a DummyData solver (GraphSolver),
-`compat.get_solver` with a step and a test net, `Net.backward`, and the
-port's PCKh (`pose.evaluate`).
+`compat.get_solver` with a step and a test net, `Net.backward`, the
+port's PCKh (`pose.evaluate`), and the data slice: `convert_imageset`,
+`compute_image_mean` and `test` on a Data-layer net.
 """
 
 import os
@@ -92,6 +93,16 @@ solver.net.forward()
 grads = solver.net.backward(diffs=["ip"])
 assert solver.net.blobs["ip"].diff.shape == (4, 3) and "acc" in out
 assert pckh(np.zeros((1, 2, 2)), np.ones((1, 2, 2)), np.array([4.0])).mean == 1.0
+
+from deepcut_tpu_torch.tools import datasets
+assert {f"deepcut_tpu_torch.{m}" for m in (
+    "data.datum", "data.lmdb_store", "data.leveldb_store", "data.transformer", "data.layers",
+    "tools.datasets", "tools.parse_log", "tools.log_tools", "tools.draw")} <= set(names)
+with open("list.txt", "w") as f:
+    f.write(f"{sys.argv[1]} 0\n{sys.argv[1]} 1\n")
+assert datasets.main(["convert_imageset", "list.txt", "db", "--resize", "16", "16"]) == 0
+assert datasets.main(["compute_image_mean", "db", "mean.binaryproto"]) == 0
+assert cli.main(["test", "-model", sys.argv[7], "-iterations", "2", "-device", "cpu"]) == 0
 assert not BLOCKED & {m.split(".")[0] for m, mod in sys.modules.items() if mod is not None}
 print("modules", len(names))
 """
@@ -110,12 +121,22 @@ layer { name: "acc" type: "Accuracy" bottom: "ip" bottom: "label" top: "acc"
 """
 
 
+DATA_NET = """
+layer { name: "data" type: "Data" top: "data" top: "label" data_param { source: "db" batch_size: 2 }
+  transform_param { crop_size: 12 mean_file: "mean.binaryproto" } }
+layer { name: "ip" type: "InnerProduct" bottom: "data" top: "ip"
+  inner_product_param { num_output: 2 weight_filler { type: "xavier" } } }
+layer { name: "loss" type: "SoftmaxWithLoss" bottom: "ip" bottom: "label" top: "loss" }
+"""
+
+
 def test_port_imports_and_runs_without_jax(tmp_path):
     from test_torch_cli import write_dataset, write_solver, write_tamed_weights
 
     solver = write_solver(tmp_path, write_dataset(tmp_path, n=2), 1)
     weights = write_tamed_weights(tmp_path / "tamed.caffemodel")
     (tmp_path / "g.prototxt").write_text(GRAPH_NET)
+    (tmp_path / "data.prototxt").write_text(DATA_NET)
     graph_solver = tmp_path / "g_solver.prototxt"
     graph_solver.write_text(f'net: "{tmp_path / "g.prototxt"}"\nbase_lr: 0.1\nmax_iter: 2\n'
                             f'display: 1\ntest_iter: 1\ntest_interval: 2\n'
@@ -124,7 +145,7 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT, str(tmp_path / "f.png"), str(tmp_path / "p.npz"),
          str(solver), str(weights), str(REPO / "examples/imagenet/caffenet_deploy.prototxt"),
-         str(graph_solver)],
+         str(graph_solver), str(tmp_path / "data.prototxt")],
         env=env, capture_output=True, text=True, timeout=300, cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stdout + proc.stderr[-4000:]
     assert int(proc.stdout.split("modules")[-1]) >= 35
@@ -135,3 +156,4 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     assert (tmp_path / "p.npz_vis.png").is_file()
     assert np.load(tmp_path / "p.npz.int8.npz")["pose"].shape == (5, 3)
     assert "Testing net (#0)" in proc.stdout and (tmp_path / "g_iter_2.caffemodel").is_file()
+    assert "Processed 2 files into db" in proc.stdout and "loss = " in proc.stdout.split("mean of")[-1]
