@@ -20,8 +20,11 @@ C++ rasterizer), held against the originals by tests/test_torch_data.py.
 - ``deepcut_tpu_torch.pose``     — preprocess, ``PoseEstimator``, decode, demo;
   on-device training targets and augmentation
 - ``deepcut_tpu_torch.solver``   — Caffe's update rules, ``PoseSolver``
-- ``deepcut_tpu_torch.parallel`` — the one-device train and eval steps
-- ``deepcut_tpu_torch.tools``    — the ``train`` command line
+- ``deepcut_tpu_torch.parallel`` — the train and eval steps, on one device
+  or data-parallel (one process per GPU, ``parallel.mesh``)
+- ``deepcut_tpu_torch.tools``    — the command line (``train``, ``test``, ...)
+- ``deepcut_tpu_torch.matlab_gateway``, ``matlab/`` — the matcaffe gateway
+  and its MEX marshaller
 
 - ``deepcut_tpu_torch.data``, ``proto``, ``runtime`` — the host input
   pipeline, the Caffe codecs and the C++ target rasterizer (own copies)

@@ -348,18 +348,7 @@ class Net:
         if self._params_ready:
             return
         self._params_ready = True
-        collected: "OrderedDict[str, List]" = OrderedDict()
-        blobs = {nm: torch.empty(sh, device="meta") for nm, sh in input_shapes.items()}
-        with torch.no_grad():
-            for fn, spec in self._plan:
-                bottoms = [blobs[b] for b in spec.bottoms]
-                pspec = L.param_spec(spec, [tuple(b.shape) for b in bottoms])
-                if pspec:
-                    collected[spec.name] = pspec
-                entry = {k: torch.zeros(s, device="meta") for k, s, _ in pspec}
-                outs = _call(fn, entry, bottoms, device="meta")
-                for top, val in zip(spec.tops, outs if isinstance(outs, (list, tuple)) else [outs]):
-                    blobs[top] = val
+        _, collected = self._meta_pass(input_shapes)
 
         # named-param sharing (Net::AppendParam): the first layer declaring
         # `param { name: "x" }` owns the array, later declarations alias it
@@ -390,6 +379,43 @@ class Net:
         pending, self._pending_weights = self._pending_weights, []
         for w in pending:
             self.load_weights(w)
+
+    def _meta_pass(self, input_shapes: Dict[str, Tuple[int, ...]]):
+        """The plan over meta tensors (shapes only): -> ({blob: meta tensor},
+        {layer: its param spec [(key, shape, filler)]})."""
+        collected: "OrderedDict[str, List]" = OrderedDict()
+        blobs = {nm: torch.empty(sh, device="meta") for nm, sh in input_shapes.items()}
+        with torch.no_grad():
+            for fn, spec in self._plan:
+                bottoms = [blobs[b] for b in spec.bottoms]
+                pspec = L.param_spec(spec, [tuple(b.shape) for b in bottoms])
+                if pspec:
+                    collected[spec.name] = pspec
+                entry = {k: torch.zeros(s, device="meta") for k, s, _ in pspec}
+                outs = _call(fn, entry, bottoms, device="meta")
+                for top, val in zip(spec.tops, outs if isinstance(outs, (list, tuple)) else [outs]):
+                    blobs[top] = val
+        return blobs, collected
+
+    def blob_shapes(self, input_shapes: Optional[Dict[str, Tuple[int, ...]]] = None
+                    ) -> Dict[str, Tuple[int, ...]]:
+        """Every blob's NCHW shape without running the net (Net::Init's
+        Reshape pass): the declared inputs, overridden by `input_shapes`;
+        the data layers' tops as declared, else from a batch pulled and
+        kept for the next pull. Materialises the params."""
+        shapes = dict(self.input_shapes)
+        shapes.update(input_shapes or {})
+        for name, src in self.data_sources.items():
+            declared = src.top_shapes()
+            if declared is None:
+                if name not in self._peeked:
+                    self._peeked[name] = src.next_batch()
+                declared = [np.shape(a) for a in self._peeked[name]]
+            for top, sh in zip(src.tops, declared):
+                shapes.setdefault(top, tuple(int(d) for d in sh))
+        self._ensure_params(shapes)
+        blobs, _ = self._meta_pass(shapes)
+        return {nm: tuple(v.shape) for nm, v in blobs.items()}
 
     # -- serving transforms ------------------------------------------------
     def _shared_owners(self) -> set:
@@ -915,12 +941,22 @@ class Net:
         moving averages (of the last micro-batch, as the reference's
         per-forward update) are written over what the rule did to them. A
         step's stochastic draws come from (the net's seed, the iteration,
-        the micro-batch, the layer). The loss is a 0-dim f32 tensor."""
-        if mesh is not None:
-            from deepcut_tpu_torch.parallel.train_step import MESH_MESSAGE
+        the micro-batch, the layer). The loss is a 0-dim f32 tensor.
 
-            raise NotImplementedError(MESH_MESSAGE)
+        mesh: a data-parallel `parallel.mesh.Mesh`. Every rank passes the
+        GLOBAL inputs (batch dim behind the iter_size axis) and holds the
+        same params; it keeps its rows, runs them under global-batch
+        semantics (`parallel.mesh.data_parallel`: the losses' normalisers,
+        BatchNorm's moments and moving averages, the stochastic draws) and
+        sums the gradients over the ranks in flat buckets before the
+        update, so every rank takes the single-device step on the global
+        batch and returns the global loss (the JAX package's jit over a
+        'data' mesh)."""
+        from deepcut_tpu_torch.parallel.mesh import (
+            all_reduce_sum, check_data_mesh, data_parallel, shard_batch)
         from deepcut_tpu_torch.solver import update_rules
+
+        check_data_mesh(mesh)
 
         def mults(table):
             return {name: {k: table.get(name, {}).get(k, 1.0) for k in entry}
@@ -931,7 +967,7 @@ class Net:
         def one_grad(params, inputs, stream):
             leaves, used = self._grad_params(params)
             updates: Dict[str, Dict[str, torch.Tensor]] = {}
-            with _tf32_off(self.compute_dtype is None):
+            with _tf32_off(self.compute_dtype is None), data_parallel(mesh):
                 loss = self.total_loss(self._execute(used, inputs, collect_updates=updates,
                                                      rng=stream))
                 flat = [v for e in leaves.values() for v in e.values() if v.requires_grad]
@@ -945,6 +981,8 @@ class Net:
 
         def step(params, state, inputs):
             it = int(state["iter"])
+            if mesh is not None:
+                inputs = shard_batch(mesh, inputs, axis=0 if iter_size == 1 else 1)
             inputs = {k: _to_tensor(v, self.device) for k, v in inputs.items()}
             if iter_size == 1:
                 loss, grads, updates = one_grad(params, inputs, (0, it, 0))
@@ -961,6 +999,8 @@ class Net:
                             for k in e:
                                 e[k] = e[k] + g_m[n][k]
                 loss = loss / iter_size
+            if mesh is not None:
+                all_reduce_sum(mesh, [g for e in grads.values() for g in e.values()])
             update_rules.step(solver_cfg, params, grads, state, lr_mults=lrm, decay_mults=dcm)
             with torch.no_grad():
                 for name, upd in updates.items():

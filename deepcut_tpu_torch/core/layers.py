@@ -58,6 +58,7 @@ from deepcut_tpu_torch.ops import norm as norm_ops
 from deepcut_tpu_torch.ops import pool as pool_ops
 from deepcut_tpu_torch.ops.conv import conv_output_size, exact_conv, full_f32_conv
 from deepcut_tpu_torch.ops.conv_epilogue import conv_epilogue
+from deepcut_tpu_torch.ops.shard_rng import local_rows
 from deepcut_tpu_torch.proto.text_format import PbNode
 
 BF16 = torch.bfloat16
@@ -947,7 +948,9 @@ def _dummy_data(spec, phase, compute_dtype):
             else:
                 cpu = torch.Generator().manual_seed(gen.initial_seed() + i)
                 outs.append(fillers.fill(f, cpu, shape).to(gen.device))
-        return outs
+        # the declared shapes are the global batch's: a data-parallel rank
+        # keeps its rows (ops.shard_rng)
+        return [local_rows(o) for o in outs]
     fn.needs_rng = any(filler(i).get_str("type", "constant") != "constant" for i in range(n_top))
     fn.device_source = True
     # constant tops are filled once (LayerSetUp) and left alone in Forward:

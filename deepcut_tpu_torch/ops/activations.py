@@ -15,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from deepcut_tpu_torch.ops.shard_rng import draw_batched
+
 
 def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.relu(x)
@@ -97,5 +99,6 @@ def dropout(x: torch.Tensor, gen: Optional[torch.Generator], *, ratio: float = 0
     or at ratio 0 (TEST)."""
     if gen is None or ratio == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < (1.0 - ratio)
+    keep = draw_batched(lambda shape: torch.rand(shape, generator=gen, device=x.device),
+                        x.shape) < (1.0 - ratio)
     return torch.where(keep, x / (1.0 - ratio), torch.zeros((), dtype=x.dtype, device=x.device))

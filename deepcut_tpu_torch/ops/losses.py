@@ -1,7 +1,6 @@
 """The losses and the Accuracy of the graph engine and the fork, in NCHW.
 
-Counterpart of `deepcut_tpu.ops.losses` on one device (its psum'ed
-variants are multi-GPU work). The fork's two pose losses, `smooth_l1_loss`
+Counterpart of `deepcut_tpu.ops.losses`. The fork's two pose losses, `smooth_l1_loss`
 and `softmax_loss_vec`, have a backward that is not the autograd of their
 forward, so each is a `torch.autograd.Function`:
 
@@ -20,6 +19,18 @@ Upstream Caffe's losses (SoftmaxWithLoss, SigmoidCrossEntropy, Euclidean,
 Hinge, Contrastive, Infogain, MultinomialLogistic) and `accuracy` follow
 the JAX package's single-device forms, whose gradients are autodiff's:
 here autograd's.
+
+Data parallelism (`sharded_losses(mesh)`, the counterpart of the JAX
+package's psum'ed variants): each rank holds its rows of the global batch,
+and every normaliser that depends on the batch (the ``/ N`` of each loss,
+the VALID / BATCH_SIZE / FULL counts, the weight sums, Accuracy's counts)
+and every loss sum is all-reduced over the mesh's process group, so each
+rank reports the global loss and its gradients are its share of the
+global gradient (their SUM over the ranks is the single-device gradient).
+The all-reduces run in the forward of an autograd Function and never in
+its backward, which passes the cotangent through unchanged: an all-reduce
+on the differentiation path would scale the gradients by the world size.
+Outside the context nothing changes, op for op.
 """
 
 from __future__ import annotations
@@ -30,6 +41,59 @@ import torch
 
 IGNORE_VALUE = 1000.0  # softmax_loss_vec_layer.cpp:12
 FLT_MIN = 1.175494e-38  # the reference's log clamp
+
+# the mesh whose 'data' axis the batch is sharded over (`sharded_losses`)
+_MESH = None
+
+
+class sharded_losses:
+    """Context: ``with sharded_losses(mesh): ...`` makes every loss and
+    Accuracy here reduce its sums and normalisers over the mesh's process
+    group (`parallel.mesh.Mesh`); ``sharded_losses(None)`` is a no-op."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        global _MESH
+        self._prev, _MESH = _MESH, self.mesh
+        return self
+
+    def __exit__(self, *exc):
+        global _MESH
+        _MESH = self._prev
+        return False
+
+
+class _GlobalSums(torch.autograd.Function):
+    """Stacked partial sums -> their sums over the mesh, all-reduced in the
+    forward; the backward hands each rank's partial sum the cotangent
+    unchanged (the counterpart of a psum inside the JAX package's
+    custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, stacked, mesh):
+        return mesh.all_reduce_(stacked.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _global_sums(*parts: torch.Tensor, mesh=None):
+    """Each 0-dim partial sum summed over `mesh` (default: the mesh of
+    `sharded_losses`) in one f32 all-reduce, back in its own dtype;
+    unchanged without a mesh."""
+    mesh = mesh if mesh is not None else _MESH
+    if mesh is None:
+        return parts
+    stacked = _GlobalSums.apply(torch.stack([p.float() for p in parts]), mesh)
+    return tuple(v.to(p.dtype) for v, p in zip(stacked.unbind(0), parts))
+
+
+def _batch(n: int) -> float:
+    """A local batch size -> the global one (every rank holds as many rows)."""
+    return float(n * (_MESH.data if _MESH is not None else 1))
 
 
 def _smooth_l1(d: torch.Tensor) -> torch.Tensor:
@@ -43,7 +107,7 @@ def _smooth_l1_grad(d: torch.Tensor) -> torch.Tensor:
 
 class _SmoothL1(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, pred, target, weights):
+    def forward(ctx, pred, target, weights, mesh):
         d = pred - target
         if weights is not None:
             d = d * weights
@@ -51,6 +115,8 @@ class _SmoothL1(torch.autograd.Function):
         else:
             wsum = torch.tensor(float(pred.numel()), dtype=torch.float32, device=pred.device)
         err = _smooth_l1(d).sum()
+        if mesh is not None:   # global sums; the backward is local math over them
+            err, wsum = _global_sums(err, wsum, mesh=mesh)
         loss = torch.where(wsum != 0, err / torch.where(wsum == 0, 1.0, wsum), 0.0)
         ctx.save_for_backward(d, wsum)
         return loss
@@ -59,7 +125,7 @@ class _SmoothL1(torch.autograd.Function):
     def backward(ctx, g):
         d, wsum = ctx.saved_tensors
         grad = g * _smooth_l1_grad(d) / torch.clamp(wsum, min=100.0)
-        return grad, -grad, None
+        return grad, -grad, None, None
 
 
 def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor,
@@ -68,7 +134,7 @@ def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor,
 
     forward: d = w*(pred-target); loss = sum f(d) / sum(|w|)  (0 if sum w == 0)
     backward: dpred = f'(d) / max(sum w, 100)   — no second w factor."""
-    return _SmoothL1.apply(pred, target, weights)
+    return _SmoothL1.apply(pred, target, weights, _MESH)
 
 
 def _sigmoid_ce_elem(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -80,10 +146,10 @@ def _sigmoid_ce_elem(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 class _SoftmaxLossVec(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, scores, labels, weights, cross_entropy, no_softmax, normalize):
+    def forward(ctx, scores, labels, weights, cross_entropy, no_softmax, normalize, mesh):
         x = scores.float()
         t = labels.float()
-        n = float(x.shape[0])
+        n = float(x.shape[0] * (mesh.data if mesh is not None else 1))
         if cross_entropy:
             live = t != IGNORE_VALUE
             w = weights if weights is not None else torch.ones_like(x)
@@ -103,6 +169,8 @@ class _SoftmaxLossVec(torch.autograd.Function):
         # backward numerator: the channel-0 weight sum when weighted
         # (softmax_loss_vec_layer.cpp:185-189), else the live count
         bwd_norm = weights[:, 0].sum() if weights is not None else count
+        if mesh is not None:   # global sums; the backward is local math over them
+            loss_sum, count, bwd_norm = _global_sums(loss_sum, count, bwd_norm, mesh=mesh)
         denom = torch.clamp(count, min=100.0) if normalize else n
         ctx.normalize, ctx.n = normalize, n
         ctx.save_for_backward(prob, t, weights, live, bwd_norm)
@@ -118,7 +186,7 @@ class _SoftmaxLossVec(torch.autograd.Function):
         else:
             diff = prob - torch.where(live, t, prob)              # zero where ignored
         denom = torch.clamp(bwd_norm, min=100.0) if ctx.normalize else ctx.n
-        return g * diff / denom, None, None, None, None, None
+        return g * diff / denom, None, None, None, None, None, None
 
 
 def softmax_loss_vec(scores: torch.Tensor, labels: torch.Tensor,
@@ -134,7 +202,8 @@ def softmax_loss_vec(scores: torch.Tensor, labels: torch.Tensor,
     is ignored when its channel-0 label is IGNORE_VALUE.
     Forward normaliser: max(count, 100) if normalize else N;
     backward normaliser: max(channel-0 weight sum or count, 100)."""
-    return _SoftmaxLossVec.apply(scores, labels, weights, cross_entropy, no_softmax, normalize)
+    return _SoftmaxLossVec.apply(scores, labels, weights, cross_entropy, no_softmax, normalize,
+                                 _MESH)
 
 
 # -- upstream Caffe's losses (autograd backward, as the JAX package's) ---------
@@ -162,13 +231,15 @@ def softmax_with_loss(scores: torch.Tensor, labels: torch.Tensor, *,
     live = lab != ignore_label if ignore_label is not None else torch.ones_like(lab, dtype=torch.bool)
     picked = _nan_if((live & ((lab < 0) | (lab >= c))).any(), picked)
     loss_sum = -torch.where(live, picked, torch.zeros_like(picked)).sum()
-    outer = scores.shape[0]
+    valid = live.sum().float()
+    if _MESH is not None:
+        loss_sum, valid = _global_sums(loss_sum, valid)
     if normalization == "VALID":
-        denom = torch.clamp(live.sum().float(), min=1.0)
+        denom = torch.clamp(valid, min=1.0)
     elif normalization == "BATCH_SIZE":
-        denom = float(outer)
+        denom = _batch(scores.shape[0])
     elif normalization == "FULL":
-        denom = float(lab.numel())
+        denom = _batch(lab.numel())
     else:
         denom = 1.0
     return loss_sum / denom
@@ -177,13 +248,15 @@ def softmax_with_loss(scores: torch.Tensor, labels: torch.Tensor, *,
 def sigmoid_cross_entropy_loss(scores: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """SigmoidCrossEntropyLoss: the overflow-safe elementwise CE summed,
     over the batch size (sigmoid_cross_entropy_loss_layer.cpp)."""
-    return _sigmoid_ce_elem(scores.float(), targets.float()).sum() / scores.shape[0]
+    (total,) = _global_sums(_sigmoid_ce_elem(scores.float(), targets.float()).sum())
+    return total / _batch(scores.shape[0])
 
 
 def euclidean_loss(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """EuclideanLoss: 0.5 * sum((a - b)^2) / N (euclidean_loss_layer.cpp)."""
     d = a.float() - b.float()
-    return 0.5 * (d * d).sum() / a.shape[0]
+    (total,) = _global_sums((d * d).sum())
+    return 0.5 * total / _batch(a.shape[0])
 
 
 def hinge_loss(scores: torch.Tensor, labels: torch.Tensor, *, norm: str = "L1") -> torch.Tensor:
@@ -194,7 +267,8 @@ def hinge_loss(scores: torch.Tensor, labels: torch.Tensor, *, norm: str = "L1") 
     n, c = x.shape
     onehot = torch.nn.functional.one_hot(labels.to(torch.int64).reshape(-1), c) > 0
     margins = torch.clamp(1.0 + torch.where(onehot, -1.0, 1.0) * x, min=0.0)
-    return ((margins * margins) if norm == "L2" else margins).sum() / n
+    (total,) = _global_sums(((margins * margins) if norm == "L2" else margins).sum())
+    return total / _batch(n)
 
 
 def contrastive_loss(a: torch.Tensor, b: torch.Tensor, y: torch.Tensor, *,
@@ -209,7 +283,8 @@ def contrastive_loss(a: torch.Tensor, b: torch.Tensor, y: torch.Tensor, *,
         neg = torch.clamp(margin - dist_sq, min=0.0)
     else:
         neg = torch.square(torch.clamp(margin - torch.sqrt(dist_sq + 1e-12), min=0.0))
-    return (yf * dist_sq + (1 - yf) * neg).sum() / (2.0 * a.shape[0])
+    (total,) = _global_sums((yf * dist_sq + (1 - yf) * neg).sum())
+    return total / (2.0 * _batch(a.shape[0]))
 
 
 def infogain_loss(prob: torch.Tensor, labels: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
@@ -218,7 +293,8 @@ def infogain_loss(prob: torch.Tensor, labels: torch.Tensor, H: torch.Tensor) -> 
     (infogain_loss_layer.cpp:59-67)."""
     p = torch.clamp(prob.float().reshape(prob.shape[0], -1), min=1e-20)
     rows = H.float()[labels.to(torch.int64).reshape(-1)]
-    return -(rows * torch.log(p)).sum() / prob.shape[0]
+    (total,) = _global_sums(-(rows * torch.log(p)).sum())
+    return total / _batch(prob.shape[0])
 
 
 def multinomial_logistic_loss(prob: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -226,7 +302,8 @@ def multinomial_logistic_loss(prob: torch.Tensor, labels: torch.Tensor) -> torch
     the last axis of `prob`."""
     p = prob.float()
     picked = torch.gather(p, -1, labels.to(torch.int64).unsqueeze(-1))
-    return -torch.log(torch.clamp(picked, min=FLT_MIN)).sum() / prob.shape[0]
+    (total,) = _global_sums(-torch.log(torch.clamp(picked, min=FLT_MIN)).sum())
+    return total / _batch(prob.shape[0])
 
 
 def accuracy(scores: torch.Tensor, labels: torch.Tensor, *, top_k: int = 1,
@@ -240,7 +317,8 @@ def accuracy(scores: torch.Tensor, labels: torch.Tensor, *, top_k: int = 1,
     topk = torch.argsort(-scores.float(), dim=-1, stable=True)[..., :top_k]
     hit = (topk == lab.unsqueeze(-1)).any(dim=-1)
     live = lab != ignore_label if ignore_label is not None else torch.ones_like(lab, dtype=torch.bool)
-    total = (hit & live).sum().float() / torch.clamp(live.sum().float(), min=1.0)
+    hits, lives = _global_sums((hit & live).sum().float(), live.sum().float())
+    total = hits / torch.clamp(lives, min=1.0)
     if not per_class:
         return total
     c = scores.shape[-1]
@@ -250,4 +328,6 @@ def accuracy(scores: torch.Tensor, labels: torch.Tensor, *, top_k: int = 1,
     onehot = torch.nn.functional.one_hot(flat.clamp(0, c - 1), c).float() * livef
     counts = onehot.sum(dim=0)
     correct = (onehot * hit.reshape(-1, 1).float()).sum(dim=0)
+    if _MESH is not None:
+        counts, correct = _MESH.all_reduce_(torch.stack([counts, correct])).unbind(0)
     return total, torch.where(counts == 0, 0.0, correct / torch.clamp(counts, min=1.0))

@@ -43,6 +43,64 @@ def batch_norm_inference(
     return out.to(x.dtype)
 
 
+# the mesh whose 'data' axis the batch is sharded over (`sharded_bn_stats`)
+_MESH = None
+
+
+class sharded_bn_stats:
+    """Context: ``with sharded_bn_stats(mesh): ...`` makes `batch_norm_train`
+    normalise with the GLOBAL batch's moments, all-reduced over the mesh's
+    process group, and move the statistics by them (the counterpart of the
+    JAX package's psum'ed moments); ``sharded_bn_stats(None)`` is a no-op."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        global _MESH
+        self._prev, _MESH = _MESH, self.mesh
+        return self
+
+    def __exit__(self, *exc):
+        global _MESH
+        _MESH = self._prev
+        return False
+
+
+class _ShardedBatchNorm(torch.autograd.Function):
+    """(x f32, mesh, eps) -> (y, global mean, global biased variance).
+
+    The forward all-reduces the per-channel sums for the mean, then the
+    centred squares for the variance, over the global batch of ``count``
+    elements per channel; the backward implements the distributed
+    BatchNorm gradient directly,
+        dx = inv * (g - mean(g) - c * inv^2 * mean(g * c)),
+    with its two means all-reduced (`deepcut_tpu.ops.norm`'s
+    _bn_normalise_sharded). The moments carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, xf, mesh, eps):
+        axes = [d for d in range(xf.dim()) if d != 1]
+        cnt = float(xf.numel() // xf.shape[1] * mesh.data)
+        mu = mesh.all_reduce_(xf.sum(dim=axes)) / cnt
+        c = xf - per_channel(mu, xf)
+        var = mesh.all_reduce_((c * c).sum(dim=axes)) / cnt
+        inv = torch.rsqrt(var + eps)
+        ctx.mesh, ctx.cnt, ctx.axes = mesh, cnt, axes
+        ctx.save_for_backward(c, inv)
+        ctx.mark_non_differentiable(mu, var)
+        return c * per_channel(inv, xf), mu, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmu, _gvar):
+        c, inv = ctx.saved_tensors
+        mesh, cnt, axes = ctx.mesh, ctx.cnt, ctx.axes
+        sums = mesh.all_reduce_(torch.stack([gy.sum(dim=axes), (gy * c).sum(dim=axes)])) / cnt
+        s1, s2 = per_channel(sums[0], gy), per_channel(sums[1], gy)
+        inv = per_channel(inv, gy)
+        return inv * (gy - s1 - c * (inv * inv) * s2), None, None
+
+
 class BNStats(NamedTuple):
     mean: torch.Tensor
     var: torch.Tensor
@@ -59,8 +117,17 @@ def batch_norm_train(x: torch.Tensor, stats: BNStats, *, eps: float = 1e-5,
     ``mean*momentum + batch_mean``, ``var*momentum + m/(m-1)*batch_var``
     (m = elements per channel) and ``scale_factor*momentum + 1``, computed
     without gradient: the statistics are not learned. Returns (y, stats)
-    instead of mutating the blobs."""
+    instead of mutating the blobs. Inside `sharded_bn_stats(mesh)` the
+    moments (and m) are the global batch's (`_ShardedBatchNorm`)."""
     xf = x.float()
+    if _MESH is not None:
+        y, batch_mean, batch_var = _ShardedBatchNorm.apply(xf, _MESH, eps)
+        m = x.numel() // x.shape[1] * _MESH.data
+        with torch.no_grad():
+            new = BNStats(mean=momentum * stats.mean + batch_mean,
+                          var=momentum * stats.var + (m / max(m - 1, 1)) * batch_var,
+                          scale_factor=momentum * stats.scale_factor + 1.0)
+        return y.to(x.dtype), new
     axes = [d for d in range(x.dim()) if d != 1]
     batch_mean = xf.mean(dim=axes)
     centered = xf - per_channel(batch_mean, xf)

@@ -30,6 +30,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from deepcut_tpu_torch.ops.shard_rng import draw_batched
+
 
 def pool_output_size(size: int, kernel: int, stride: int, pad: int) -> int:
     out = -(-(size + 2 * pad - kernel) // stride) + 1  # ceil division
@@ -120,7 +122,8 @@ def stochastic_pool2d_train(x: torch.Tensor, gen: torch.Generator, *, kernel,
     sums = torch.zeros_like(views[0])
     for v in views:            # the running sums' own order: the last one reaches u * sums
         sums = sums + v
-    thresh = torch.rand(sums.shape, generator=gen, device=x.device) * sums
+    thresh = draw_batched(lambda shape: torch.rand(shape, generator=gen, device=x.device),
+                          sums.shape) * sums
     out = torch.zeros_like(sums)
     cum = torch.zeros_like(sums)
     picked = torch.zeros(sums.shape, dtype=torch.bool, device=x.device)

@@ -1,2 +1,3 @@
-"""Train and eval steps (the counterparts of `deepcut_tpu.parallel`); one
-device only until the multi-GPU slice of the port."""
+"""Train and eval steps and data parallelism (the counterparts of
+`deepcut_tpu.parallel`): one process per GPU over a `torch.distributed`
+group, the 'data' axis; the 'spatial' axis is not ported yet."""

@@ -1,7 +1,7 @@
 """The training loops (the reference Solver, src/caffe/solver.cpp), in
 PyTorch.
 
-Counterpart of `deepcut_tpu.solver.solver` on one device. `SolverParams`
+Counterpart of `deepcut_tpu.solver.solver`. `SolverParams`
 parses the same solver.prototxt files. `PoseSolver` runs DeeperCut:
 prefetched batches through the native forward, the fork's losses and their
 hand-written backward passes, with iter_size accumulation on the host, the
@@ -11,6 +11,14 @@ net through the graph engine (`core.graph.Net.make_train_step`), with its
 test nets sharing the trained layers, fed by their data layers or staged
 inputs, and the same loop controls.
 
+Both take a data-parallel ``mesh=`` (`parallel.mesh.make_mesh`, one
+process per GPU): each rank pulls the GLOBAL batch from its own source
+(the same seed and cursor on every rank) and keeps its rows, the
+gradients are summed over the ranks before the update, the losses, the
+display and the test scores are the global batch's, the coordinator
+(rank 0) alone logs, runs PoseSolver's eval hook and writes snapshots,
+and every rank restores them.
+
 Snapshots are the JAX package's: a ``.npz`` with ``params/<layer>/<key>``
 and ``state/...`` entries in its layouts (HWIO conv weights), so either
 package restores the other's, and a reference-readable ``.caffemodel``
@@ -19,6 +27,7 @@ package restores the other's, and a reference-readable ``.caffemodel``
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import signal as _signal
@@ -36,7 +45,8 @@ from deepcut_tpu_torch.models.convert import (
     save_caffemodel)
 from deepcut_tpu_torch.models.resnet import DeeperCut, init_params
 from deepcut_tpu_torch.models.train import bn_frozen_mults
-from deepcut_tpu_torch.parallel.train_step import MESH_MESSAGE, GradStep, batch_preparer
+from deepcut_tpu_torch.parallel.mesh import check_data_mesh, replicated, shard_batch, tree_leaves
+from deepcut_tpu_torch.parallel.train_step import GradStep, batch_preparer
 from deepcut_tpu_torch.solver import update_rules
 from deepcut_tpu_torch.solver.update_rules import SolverConfig
 
@@ -300,10 +310,39 @@ class SignalHandler:
         self._apply(self._sighup_effect)
 
 
+def _solver_device(device, mesh):
+    """A solver's device: the one given, else the mesh's, else the card; a
+    device that is not the mesh's raises, and so does a spatial mesh."""
+    check_data_mesh(mesh)
+    if mesh is None:
+        return device or "cuda"
+    if device is not None and torch.device(device) != mesh.device:
+        raise ValueError(f"device {device} is not the mesh's ({mesh.device})")
+    return mesh.device
+
+
+def _coordinator_log(log: Callable[[str], None], mesh) -> Callable[[str], None]:
+    """`log` on the coordinator (every rank computes the same global
+    numbers), silent on the other ranks."""
+    if mesh is None or mesh.is_coordinator():
+        return log
+    return lambda *_: None
+
+
+@contextlib.contextmanager
+def _coordinator_writes(mesh):
+    """Yields whether this rank writes a snapshot (the coordinator, or any
+    process outside a mesh); the ranks meet after it, so that a restore
+    anywhere finds the files."""
+    yield mesh is None or mesh.is_coordinator()
+    if mesh is not None:
+        mesh.barrier()
+
+
 class GraphSolver:
     """The `caffe train` loop for any prototxt net, through the graph engine
     (Solver::Step / Solve / Test, solver.cpp), on one device ("cuda" by
-    default).
+    default) or data-parallel over a mesh.
 
     The train net is resolved from the solver (net, net_param, train_net or
     train_net_param, with train_state's stages and level), or given as a
@@ -313,18 +352,24 @@ class GraphSolver:
     MemoryData, DummyData) and from `extra_inputs` ({name: NCHW array},
     staged over them on every step, as pycaffe's persistent blobs); test
     nets (Solver::InitTestNets) share the trained layers, pull from their
-    own data layers and take `extra_test_inputs`."""
+    own data layers and take `extra_test_inputs`.
+
+    mesh: data-parallel training of any prototxt net (the reference CLI's
+    ``-gpu 0,1,...``): the data layers' batch is the GLOBAL batch, each
+    rank trains on its rows (`core.graph.Net.make_train_step`), the test
+    nets run the whole test batch on every rank. device defaults to the
+    mesh's, else the card."""
 
     _STATE_KEYS = ("history", "update_sq", "m", "v")
 
     def __init__(self, params: SolverParams, net=None, *, mesh=None, handle_signals: bool = True,
                  log: Callable[[str], None] = print, sigint_effect: str = "stop",
-                 sighup_effect: str = "snapshot", device="cuda"):
+                 sighup_effect: str = "snapshot", device=None):
         from deepcut_tpu_torch.core.graph import Net
 
-        if mesh is not None:
-            raise NotImplementedError(MESH_MESSAGE)
+        device = _solver_device(device, mesh)
         self.params_cfg = params
+        self.mesh = mesh
         self.device = device
         if net is None:
             model_def, stages, level = params.resolve_train_net()
@@ -334,11 +379,13 @@ class GraphSolver:
             net = Net(net, phase="TRAIN", compute_dtype=None, seed=max(params.random_seed, 0),
                       device=device)
         self.net = net
-        self.log = log
+        self.log = _coordinator_log(log, mesh)
         self.signals = SignalHandler(handle_signals, sigint_effect, sighup_effect)
         self._loss_window: deque = deque(maxlen=max(params.average_loss, 1))
         self.net.materialize_params()
-        self._step_fn = self.net.make_train_step(params.config)
+        if mesh is not None:
+            replicated(mesh, tree_leaves(self.net.params))
+        self._step_fn = self.net.make_train_step(params.config, mesh=mesh)
         self.state = update_rules.init_state(params.config, self.net.params)
         self._test_nets: Optional[List] = None
         self._last_host_inputs: Dict[str, Any] = {}
@@ -437,8 +484,11 @@ class GraphSolver:
             self.net._pull_data_layers(inputs)
             if stash:   # the host batch, for the debug_info forward of this iteration
                 self._last_host_inputs = {k: np.asarray(v) for k, v in inputs.items()}
-            return {nm: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
-                    .to(self.net.device) for nm, v in inputs.items()}
+            inputs = {nm: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+                      for nm, v in inputs.items()}
+            if self.mesh is not None:   # the step keeps this rank's rows before the transfer
+                return inputs
+            return {nm: v.to(self.net.device) for nm, v in inputs.items()}
 
         k = max(self.params_cfg.config.iter_size, 1)
         stash = bool(self.params_cfg.debug_info)
@@ -543,15 +593,21 @@ class GraphSolver:
         HDF5``, h5py needed), with each blob's last update as its diff under
         `snapshot_diff`, and a ``.solverstate`` whose learned_net names
         that file."""
-        from deepcut_tpu_torch.proto.caffemodel import (
-            encode_solverstate, save_caffemodel as save_netparameter, save_hdf5_weights)
-
         fmt = self.params_cfg.snapshot_format.upper()
         if fmt not in ("BINARYPROTO", "HDF5"):
             raise NotImplementedError(
                 f"snapshot_format {fmt}: the port writes BINARYPROTO or HDF5 snapshots")
-        types = self.net.layer_types()
         prefix = f"{self.params_cfg.snapshot_prefix}_iter_{self.iter}"
+        with _coordinator_writes(self.mesh) as write:
+            if write:
+                self._write_snapshot(prefix, fmt, export_caffemodel)
+        return f"{prefix}.npz"
+
+    def _write_snapshot(self, prefix: str, fmt: str, export_caffemodel: bool) -> None:
+        from deepcut_tpu_torch.proto.caffemodel import (
+            encode_solverstate, save_caffemodel as save_netparameter, save_hdf5_weights)
+
+        types = self.net.layer_types()
         save_checkpoint(f"{prefix}.npz", self.net.params, self.state, layer_types=types)
         self.log(f"Snapshotting to {prefix}.npz")
         if export_caffemodel:
@@ -571,7 +627,6 @@ class GraphSolver:
                 f.write(encode_solverstate(self.iter, [a for *_, a in self._state_leaves()],
                                            learned_net=model_path))
             self.log(f"Snapshotting solver state to {prefix}.solverstate")
-        return f"{prefix}.npz"
 
     @torch.no_grad()
     def restore(self, path: str) -> None:
@@ -643,26 +698,32 @@ class PoseSolver:
 
     eval_fn is called as ``eval_fn(net_params, iter)`` on `test_interval`
     boundaries, before that iteration's update (Solver::Step's TestAll
-    gate); a returned string is logged."""
+    gate); a returned string is logged.
+
+    mesh: data-parallel training; batch_source yields the GLOBAL batch on
+    every rank (the same sequence), each rank trains on its rows, the
+    eval hook runs on the coordinator. device defaults to the mesh's, else
+    the card."""
 
     def __init__(self, params: SolverParams, model_cfg, batch_source: Callable[[], Dict[str, Any]],
                  *, net_params=None, mesh=None, lr_mults=None, handle_signals: bool = True,
                  log: Callable[[str], None] = print, target_cfg=None, target_stats=None,
                  eval_fn: Optional[Callable[[Any, int], Optional[str]]] = None,
                  sigint_effect: str = "stop", sighup_effect: str = "snapshot",
-                 device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(MESH_MESSAGE)
+                 device=None):
         self.params_cfg = params
         self.model_cfg = model_cfg
         self.batch_source = batch_source
-        self.log = log
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.log = _coordinator_log(log, mesh)
+        self.device = torch.device(_solver_device(device, mesh))
         if net_params is None:
             seed = params.random_seed if params.random_seed >= 0 else 0
             net_params = init_params(torch.Generator().manual_seed(seed), model_cfg)
         self.model = DeeperCut(net_params, model_cfg, folded=False, trainable=True).to(
             self.device, memory_format=torch.channels_last)
+        if mesh is not None:
+            replicated(mesh, tree_leaves(self.net_params))
         self.state = update_rules.init_state(params.config, self.net_params)
         self.signals = SignalHandler(handle_signals, sigint_effect, sighup_effect)
         self._loss_window: deque = deque(maxlen=max(params.average_loss, 1))
@@ -674,7 +735,7 @@ class PoseSolver:
         if lr_mults is None:
             lr_mults = decay_mults = bn_frozen_mults(self.net_params)
         self._body = GradStep(model_cfg, params.config, lr_mults=lr_mults,
-                              decay_mults=decay_mults)
+                              decay_mults=decay_mults, mesh=mesh)
 
     @property
     def net_params(self):
@@ -706,15 +767,18 @@ class PoseSolver:
                 self.signals.snapshot_requested = False
             if (self.eval_fn is not None and cfg.test_interval
                     and self.iter % cfg.test_interval == 0
-                    and (self.iter > 0 or cfg.test_initialization)):
+                    and (self.iter > 0 or cfg.test_initialization)
+                    and (self.mesh is None or self.mesh.is_coordinator())):
                 self.log(f"Iteration {self.iter}, Testing net")
                 msg = self.eval_fn(self.net_params, self.iter)
                 if msg:
                     self.log(f"    Test net output: {msg}")
             total, metrics = 0.0, {}
             for _ in range(n_acc):
-                loss, metrics = self._body.backward(self.net_params,
-                                                    self._prepare(self.batch_source()))
+                batch = self.batch_source()
+                if self.mesh is not None:
+                    batch = shard_batch(self.mesh, batch)
+                loss, metrics = self._body.backward(self.net_params, self._prepare(batch))
                 total = total + loss
             it_pre = self.iter
             self._body.update(self.net_params, self.state)
@@ -752,11 +816,13 @@ class PoseSolver:
                 f"snapshot_format {self.params_cfg.snapshot_format!r}: the port writes "
                 ".npz + .caffemodel snapshots only")
         prefix = f"{self.params_cfg.snapshot_prefix}_iter_{self.iter}"
-        save_checkpoint(f"{prefix}.npz", self.net_params, self.state)
-        self.log(f"Snapshotting to {prefix}.npz")
-        if export_caffemodel:
-            save_caffemodel(f"{prefix}.caffemodel", self.net_params)
-            self.log(f"Snapshotting model weights to {prefix}.caffemodel")
+        with _coordinator_writes(self.mesh) as write:
+            if write:
+                save_checkpoint(f"{prefix}.npz", self.net_params, self.state)
+                self.log(f"Snapshotting to {prefix}.npz")
+                if export_caffemodel:
+                    save_caffemodel(f"{prefix}.caffemodel", self.net_params)
+                    self.log(f"Snapshotting model weights to {prefix}.caffemodel")
         return f"{prefix}.npz"
 
     @torch.no_grad()

@@ -4,6 +4,7 @@ extract_features / upgrade_*.
     python -m deepcut_tpu_torch.tools.cli train -solver SOLVER.prototxt \\
         [-weights X.caffemodel] [-snapshot S.npz|S.solverstate] [-mixed_precision] [-remat] \\
         [-augment_device] [-host_targets] [-device cuda]
+    torchrun --nproc_per_node N -m deepcut_tpu_torch.tools.cli train -solver S -mesh N
     python -m deepcut_tpu_torch.tools.cli test -model NET.prototxt [-weights X.caffemodel] \\
         [-iterations 50] [-fp32] [-device cuda]
     python -m deepcut_tpu_torch.tools.cli time -model NET.prototxt [-iterations 10] \\
@@ -27,8 +28,12 @@ solver trains its prototxt net through the graph engine
 list of .caffemodel files, copied by layer name in order) or resuming from
 -snapshot (a .npz or a .solverstate); its nets are fed by their data
 layers (Data on LMDB or LevelDB, ImageData, HDF5Data, WindowData,
-MemoryData, DummyData) or Input tops. -mesh / -spatial
-(multi-GPU) raise NotImplementedError. Precision: the reference trains in
+MemoryData, DummyData) or Input tops. -mesh N trains data-parallel over
+N GPUs, one process each under torchrun (WORLD_SIZE must equal N): the
+solver's batch is the global batch, each rank trains on its rows, the
+gradients are summed over the ranks, rank 0 logs and writes the
+snapshots (`parallel.mesh`); -spatial > 1 (image rows sharded) raises
+NotImplementedError, it is the spatial slice of the port. Precision: the reference trains in
 pure f32, and cuDNN's default TF32 is not f32, so f32 training turns TF32
 off for cuDNN and matmuls and says so in its first log line;
 -mixed_precision (bf16 convs, f32 params, losses and updates) is the
@@ -73,8 +78,9 @@ from deepcut_tpu_torch.proto import text_format
 
 ENGINE_MESSAGE = ("the solver's net has no PoseData layer: a generic prototxt net trains "
                   "through solver.solver.GraphSolver (the train verb runs it)")
-MULTI_GPU_MESSAGE = ("-mesh / -spatial (data-parallel and spatial training) belong to the "
-                     "multi-GPU slice of the port, which is not ported yet")
+SPATIAL_MESSAGE = ("-spatial > 1 (image rows sharded over a spatial axis) belongs to the "
+                   "spatial slice of the port, which is not ported yet; -mesh N trains "
+                   "data-parallel")
 
 
 def _target_config_from_layer(node) -> "TargetConfig":
@@ -121,14 +127,15 @@ def _tf32_off() -> None:
           "(the reference trains in full f32; -mixed_precision is the fast path)")
 
 
-def train_graph(args, sp) -> int:
+def train_graph(args, sp, mesh=None) -> int:
     """`train` for a solver without a PoseData layer: GraphSolver over its
     prototxt net (caffe.cpp train with the generic net)."""
     from deepcut_tpu_torch.solver.solver import GraphSolver
 
     _tf32_off()
-    solver = GraphSolver(sp, sigint_effect=args.sigint_effect, sighup_effect=args.sighup_effect,
-                         device=args.device)
+    solver = GraphSolver(sp, mesh=mesh, sigint_effect=args.sigint_effect,
+                         sighup_effect=args.sighup_effect,
+                         device=None if mesh is not None else args.device)
     if args.weights:
         # finetune: matching layers by name, file by file (caffe.cpp CopyLayers)
         for w in args.weights.split(","):
@@ -168,22 +175,50 @@ def pose_data(sp, *, workers: int = 4, host_targets: bool = False,
     return tcfg, stats, source, pp
 
 
+def _train_mesh(args):
+    """-mesh N: this process's rank of the torchrun job (its process group
+    joined on its card, or the CPU with -device cpu) -> the data-parallel
+    mesh; None without -mesh."""
+    if args.spatial > 1:
+        raise NotImplementedError(SPATIAL_MESSAGE)
+    if not args.mesh:
+        return None
+    from deepcut_tpu_torch.parallel import distributed
+    from deepcut_tpu_torch.parallel.mesh import make_mesh
+
+    device = distributed.initialize(device="cpu" if args.device == "cpu" else "cuda")
+    return make_mesh(args.mesh, device=device)
+
+
 def train(args) -> int:
+    from deepcut_tpu_torch.parallel import distributed
+
+    mesh = _train_mesh(args)
+    try:
+        return _train(args, mesh)
+    finally:
+        if mesh is not None:
+            distributed.shutdown()
+
+
+def _train(args, mesh) -> int:
     import torch
 
     from deepcut_tpu_torch.models.resnet import deepercut_config, init_params
+    from deepcut_tpu_torch.parallel.mesh import broadcast_int
     from deepcut_tpu_torch.solver.solver import PoseSolver, SolverParams
 
-    if args.mesh or args.spatial > 1:
-        raise NotImplementedError(MULTI_GPU_MESSAGE)
     sp = SolverParams.from_prototxt(args.solver)
     try:
         sp.resolve_train_net()
     except ValueError as e:
         print(str(e), file=sys.stderr)
         return 1
+    if mesh is not None and sp.random_seed < 0:
+        # every rank pulls the same global batches: one seed, drawn on rank 0
+        sp.random_seed = broadcast_int(mesh, int.from_bytes(os.urandom(4), "little") >> 1)
     if _pose_data_layer(sp) is None:
-        return train_graph(args, sp)
+        return train_graph(args, sp, mesh)
     tcfg, stats, source, pp = pose_data(sp, workers=args.data_workers,
                                         host_targets=args.host_targets,
                                         augment_device=args.augment_device)
@@ -212,7 +247,7 @@ def train(args) -> int:
             target_cfg=None if args.host_targets else tcfg,
             target_stats=None if args.host_targets else stats,
             sigint_effect=args.sigint_effect, sighup_effect=args.sighup_effect,
-            device=args.device)
+            mesh=mesh, device=None if mesh is not None else args.device)
         if args.snapshot:
             solver.restore(args.snapshot)
         solver.solve()
@@ -441,8 +476,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="override pose_data_param.batch_size (default: the prototxt's, else 1)")
     p.add_argument("-resnet", type=int, default=152, choices=(50, 101, 152))
     p.add_argument("-device", default="cuda", help="torch device to train on (cuda, cuda:1, cpu)")
-    p.add_argument("-mesh", type=int, default=0, help="multi-GPU: not ported yet (raises)")
-    p.add_argument("-spatial", type=int, default=1, help="multi-GPU: not ported yet (raises)")
+    p.add_argument("-mesh", type=int, default=0,
+                   help="data-parallel over N GPUs (the -gpu 0,1,.. analog): run under "
+                        "torchrun --nproc_per_node N, one process per GPU")
+    p.add_argument("-spatial", type=int, default=1,
+                   help="image rows over a spatial axis: the spatial slice of the port, "
+                        "not ported yet (> 1 raises)")
     p.add_argument("-data_workers", type=int, default=4,
                    help="decode threads in the input pipeline (0 = serial; same batches)")
     p.add_argument("-sigint_effect", default="stop", choices=["stop", "snapshot", "none"])

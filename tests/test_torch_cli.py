@@ -6,7 +6,7 @@ steps (loss 3e5, then 4e12, then NaN), so the first run finetunes from a
 tamed random `.caffemodel` (-weights, the path users take), in f32, with
 snapshots; the second resumes from that `.npz` under -mixed_precision
 -remat -augment_device; a third takes host-rasterized targets at batch 2.
-Multi-GPU, not ported, raises NotImplementedError; a Data-layer solver
+-mesh outside a torchrun job and -spatial raise; a Data-layer solver
 trains through GraphSolver. The data slice's verbs against the JAX
 package's: `test` and `extract_features` on a Data-layer net, the three
 `upgrade_*` verbs (byte-equal files) and the four deprecated aliases.
@@ -113,12 +113,15 @@ def test_train_verb_f32_then_resume_mixed(tmp_path, capsys):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
 
 
-def test_unported_paths_raise(tmp_path, capsys):
+def test_unported_paths_raise(tmp_path, capsys, monkeypatch):
     index = write_dataset(tmp_path, n=1)
     solver = write_solver(tmp_path, index, 1)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # -mesh N outside a torchrun job: no process group can form, and it raises
+    for name in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         cli.main(["train", "-solver", str(solver), "-mesh", "2", "-device", "cpu"])
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(NotImplementedError, match="spatial slice"):
         cli.main(["train", "-solver", str(solver), "-spatial", "2", "-device", "cpu"])
     # a net fed by a Data layer trains through GraphSolver (the data slice)
     net, _ = data_net(tmp_path)

@@ -234,8 +234,11 @@ def test_backward_nonfloat_input_and_unknown_blob():
         tnet.backward(diffs=["nosuchblob"], **xs)
     with pytest.raises(ValueError, match="seed diffs"):
         tnet.backward(start="ip", **xs)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tnet.make_train_step(t_ur.SolverConfig(), mesh=object())
+    from deepcut_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(NotImplementedError, match="spatial slice"):
+        tnet.make_train_step(t_ur.SolverConfig(),
+                             mesh=Mesh(None, 0, 1, 2, torch.device("cpu")))
 
 
 def test_compat_backward_and_blob_diff():

@@ -13,7 +13,10 @@ verbs and a `Classifier` on examples/imagenet/caffenet_deploy.prototxt;
 then its training: `train` on a DummyData solver (GraphSolver),
 `compat.get_solver` with a step and a test net, `Net.backward`, the
 port's PCKh (`pose.evaluate`), and the data slice: `convert_imageset`,
-`compute_image_mean` and `test` on a Data-layer net.
+`compute_image_mean` and `test` on a Data-layer net; the matcaffe
+gateway's `get_net` / `net_forward` on the CPU (its default device
+`cuda:0` read first), and two data-parallel GraphSolver steps in a gloo
+group of one.
 """
 
 import os
@@ -103,6 +106,26 @@ with open("list.txt", "w") as f:
 assert datasets.main(["convert_imageset", "list.txt", "db", "--resize", "16", "16"]) == 0
 assert datasets.main(["compute_image_mean", "db", "mean.binaryproto"]) == 0
 assert cli.main(["test", "-model", sys.argv[7], "-iterations", "2", "-device", "cpu"]) == 0
+
+from deepcut_tpu_torch import matlab_gateway as gw
+assert gw.device() == "cuda:0"   # the default, before any command
+gw.dispatch("set_mode_cpu", [])
+(h,) = gw.dispatch("get_net", ["g.prototxt", "train"])
+gw.dispatch("net_forward", [h])
+names_attr = dict(gw.dispatch("net_get_attr", [h])[0]["fields"])
+assert names_attr["blob_names"]["v"] == ["data", "label", "ip", "loss"]
+import socket
+from deepcut_tpu_torch.parallel import distributed
+from deepcut_tpu_torch.parallel.mesh import make_mesh
+from deepcut_tpu_torch.solver.solver import GraphSolver, SolverParams
+with socket.socket() as sk:
+    sk.bind(("127.0.0.1", 0))
+    port = sk.getsockname()[1]
+distributed.initialize(f"tcp://127.0.0.1:{port}", 1, 0, device="cpu")
+dp = GraphSolver(SolverParams.from_prototxt(sys.argv[6]), mesh=make_mesh(1), handle_signals=False)
+dp.step(2)
+assert dp.iter == 2 and np.isfinite(dp.smoothed_loss)
+distributed.shutdown()
 assert not BLOCKED & {m.split(".")[0] for m, mod in sys.modules.items() if mod is not None}
 print("modules", len(names))
 """
