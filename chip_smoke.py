@@ -4,9 +4,9 @@
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --serving-times  # phase 1 and the serving times only
 
-Drives the port's seven paths (bf16 serving, int8 serving, training, the
+Drives the port's eight paths (bf16 serving, int8 serving, training, the
 Caffe graph engine's serving, its data slice, MatCaffe with data-parallel
-training, and the engine's training) at full width through their entry
+training, the spatial axis, and the engine's training) at full width through their entry
 points, in phases; any failure raises and the exit code is non-zero:
 
 1. the card: nvidia-smi's name and power limit, torch / CUDA versions;
@@ -105,6 +105,21 @@ M. MatCaffe and data-parallel training: M1 the reference's matcaffe
    steps, PoseSolver at full width on 2 frames for 3 steps, the losses and
    conv1's and the heads' weights within the stated tolerances; each step
    timed (one card: not a scaling measurement);
+S. the spatial axis: two spawned ranks on the one card over gloo (CUDA
+   tensors through the host), a (data=1, spatial=2) mesh, against one
+   process: S1 PoseSolver at ResNet-152's full width on the 704 canvas, f32
+   (TF32 off), 3 steps with the eval hook at iteration 0 (the losses and
+   conv1's, res5c's and the heads' weights), and one -mixed_precision step;
+   S2 E(b)'s ResNet-152 prototxt with the heads' losses through
+   GraphSolver, the split logged (the trunk sharded up to the heads), its
+   first step compared; S3 PoseEstimator(mesh=) in bf16 on a 1088x1920
+   multi-person frame and a 688x688 one (43 rows at res4 / res5 over two
+   ranks) against one process, the strict local maxima against one process
+   and the tiled path, the pose through the decode's probability-map entry,
+   and int8 (calibrated on a 480x640 frame) on the HD frame; each rank
+   replays its new launch geometries (conv_epilogue at row-sharded shapes,
+   int8_im2col with pad_h != pad_w) against the plain kernels; every step
+   and scoremaps call timed beside one process's (not a scaling figure);
 6. times on the card, each beside the card's name and limit: the bf16 and
    int8 serving forwards and estimate_pose_batch at batch 1 and 4
    (CUDA-event wall time, torch.profiler device busy time, idle share,
@@ -126,10 +141,11 @@ server (the int8 serving path), again before T1 and after T3 (the
 training path), again before G and after it (the graph engine's path),
 again before D and after it (the data slice's path: `cli test` in bf16
 launches conv_epilogue), again before M and after it (MatCaffe and the
-data-parallel path: the eval hook's decode), and again before E and after it (the engine's
+data-parallel path: the eval hook's decode), again before S and after it
+(the spatial path, with the counts of its two ranks: every kernel), and again before E and after it (the engine's
 training path, which launches no kernel: its f32 stream rounds nowhere).
 The launch geometries of every path but E are replayed against the plain
-kernels after D. --serving-times imports only what the package had before the conv
+kernels after S (S's ranks replay their own). --serving-times imports only what the package had before the conv
 epilogue kernel, so the same timing runs over an older checkout of the
 package (run from that checkout) for a comparison inside one call.
 It never imports jax (the card's machine has none). The line before the last
@@ -2891,6 +2907,593 @@ def phase_matcaffe_dp(card: str) -> None:
         log(f"phase M took {time.perf_counter() - t0:.1f} s")
 
 
+# -- S. the spatial axis: row-sharded training and serving --------------------
+# Two ranks on the one card over gloo (CUDA tensors through the host), a
+# (data=1, spatial=2) mesh, against one process. Not a scaling measurement:
+# one card, and every halo exchange crosses the host.
+#
+# S1 / S2: each rank's convolutions run on its half of the canvas rows plus
+# halos, where cuDNN may pick other algorithms and sum in another order;
+# gloo sums the two halves' weight gradients in f32. Written before the
+# first card run: M3's bounds, which the data axis met with the batch split
+# in two (losses 1e-6 relative, weights 1e-5 of their scale, the tamed
+# conv1 1e-3), at M3's rate (M3_POSE_LR, the same reason). Read on the card
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): the first step as predicted
+# (S1's loss 1.2e-7 apart; S2's loss equal and conv1's update 1.9e-4 of its
+# scale), but not S1's third step: its loss 7.2e-6 apart and the tamed
+# conv1 1.66e-3 of its scale. conv1 moves by a quarter of its scale per
+# step under a gradient that cancels to ~1e-2 of its terms. So every step
+# is held to M3's bounds against one process's step from the same state
+# (step 1 from the init, step k + 1 from the ranks' snapshot after step k:
+# `_s1_replay`), where a wrong halo, gather or gradient scale in any step
+# shows at once; the free three-step trajectory is held to bounds set
+# after that first reading, ~7x above it, and its witness is logged beside
+# it: one process's own trajectory from the ranks' first step. Read on the
+# card: every step from the same state within M3's bounds (conv1's update
+# 2.3e-4 at most); one process from the ranks' step-1 snapshot drifts
+# 6.7e-6 / 1.58e-3 from its own trajectory (the ranks 7.2e-6 / 1.66e-3),
+# and the ranks' step 2 in another summation order lands as far from
+# their own (worst leaf 7.9e-4) as from one process's: rounding, amplified.
+S_STEPS = 3
+S_LOSS_RTOL, S_WEIGHT_RTOL, S_CONV1_RTOL = M3_LOSS_RTOL, M3_WEIGHT_RTOL, M3_CONV1_RTOL
+S_TRAJ_LOSS_RTOL, S_TRAJ_CONV1_RTOL = 5e-5, 1e-2
+S_POSE_BLOBS = ("conv1", "res5c_branch2c") + ENGINE_POSE_BLOBS[1:]
+# S1's -mixed_precision step: bf16 convolutions on other row extents round
+# other sums; held as T2 holds the mixed loss against f32.
+S_MIXED_LOSS_RTOL = MIXED_LOSS_RTOL
+# S3: the bf16 serving forward over two row blocks against one process on
+# the same canvas: every conv ends in conv_epilogue's single rounding, but
+# cuDNN sums each block's convolution in its own order, so a bf16 value may
+# land one step away and carry on through the trunk, as fusing branch1 and
+# branch2a does in phase G. Written before the first run: within
+# FUSED_MAX_STEPS bf16 steps at each map's largest magnitude. The strict
+# local maxima (tests/test_hd_multiperson.py) agree with the tiled path's
+# wherever a peak stands clear of its neighbours and of the threshold by
+# the two maps' distance (`keypoints_agree`); so do one process's full-frame maxima.
+# int8, sharded against one process's int8 on the same scales: the same
+# exact int32 GEMMs, so only the bf16 stem and heads' sum orders can
+# separate them; held to the same bf16-step bound (phase Q's envelope is
+# for int8 against float; the card read them equal bit for bit).
+S_MAP_STEPS = FUSED_MAX_STEPS
+S_HD = (1088, 1920)       # 1080p rounded up to the stride-8 canvas; 1088 % 16 == 0
+S_TILE = 512              # the tiled path's max_size for the keypoint check
+S_JOIN_S = 900
+
+
+def draw_people(h, w, n_people, rng):
+    """tests/test_hd_multiperson.py's synthetic multi-person frame: a
+    textured background and n figures (head blob, torso bar, arms)."""
+    img = rng.randint(0, 60, (h, w, 3)).astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    for _ in range(n_people):
+        cy, cx = rng.uniform(0.2 * h, 0.8 * h), rng.uniform(0.15 * w, 0.85 * w)
+        s = rng.uniform(40, 90)
+        col = rng.uniform(120, 255, 3)
+        head = np.exp(-(((yy - (cy - 1.2 * s)) ** 2 + (xx - cx) ** 2) / (2 * (0.35 * s) ** 2)))
+        torso = np.exp(-(((yy - cy) / (1.0 * s)) ** 2 + ((xx - cx) / (0.45 * s)) ** 2))
+        for arm in (-1, 1):
+            ax = cx + arm * 0.8 * s
+            torso += np.exp(-(((yy - (cy - 0.4 * s)) / (0.7 * s)) ** 2
+                              + ((xx - ax) / (0.18 * s)) ** 2))
+        img += np.clip(head + torso, 0, 1)[:, :, None] * col[None, None, :]
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def local_maxima(sm, thr, margin=0.0):
+    """{(joint, row, col)}: interior cells above thr that exceed each of
+    their 8 neighbours by more than margin."""
+    h, w, _ = sm.shape
+    c = sm[1:-1, 1:-1]
+    mask = c > thr
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            if dy or dx:
+                mask &= c > sm[1 + dy:h - 1 + dy, 1 + dx:w - 1 + dx] + margin
+    return {(int(j), int(y) + 1, int(x) + 1) for y, x, j in zip(*np.nonzero(mask))}
+
+
+def keypoints_agree(sm_a: np.ndarray, sm_b: np.ndarray, what: str):
+    """The multi-person keypoints of two (h, w, J) maps agree: with d the
+    largest |a - b| and the threshold thr a's 0.999 quantile, every cell
+    that stands clear (above thr + d and above each neighbour by more than
+    2d) in either map is a strict local maximum above thr - d in the other,
+    which d cannot change; -> (clear maxima of a, d). A disagreement joins
+    S_FAILURES."""
+    d = float(np.abs(sm_a - sm_b).max())
+    thr = float(np.quantile(sm_a, 0.999))
+    clear_a, clear_b = (local_maxima(m, thr + d, 2 * d) for m in (sm_a, sm_b))
+    if not clear_a or not clear_a <= local_maxima(sm_b, thr - d) \
+            or not clear_b <= local_maxima(sm_a, thr - d):
+        S_FAILURES.append(f"{what}: {len(clear_a)} / {len(clear_b)} clear maxima, maps within "
+                          f"{d:.3g}: {sorted(clear_a ^ clear_b)[:10]}")
+    return len(clear_a), d
+
+
+def _s1_pose(spec: dict, mesh) -> dict:
+    """S1: PoseSolver at full width on one frame, S_STEPS f32 steps (TF32
+    off, deterministic cuDNN; the weights kept after each), the eval hook
+    decoding a frame at iteration 0 on the coordinator; on the mesh a
+    snapshot after each step (`_s1_replay` takes the next step from it in
+    one process) and the second step again from the first snapshot in
+    another summation order (`_other_order`); then one -mixed_precision
+    step from the same weights on the same batch."""
+    from deepcut_tpu_torch.solver.solver import PoseSolver
+
+    cfg = deepercut_config(spec["depth"], pairwise=False)
+    feed = itertools.cycle(spec["pose_batches"])
+    dev = mesh.device if mesh is not None else spec["device"]
+    poses = []
+
+    def eval_fn(params, it):
+        est = PoseEstimator(params, cfg, folded=False, device=dev)
+        poses.append(est.estimate_pose(spec["eval_frame"]))
+
+    def weights(solver):
+        return {n: solver.net_params[n]["w"].detach().cpu().numpy().copy() for n in S_POSE_BLOBS}
+
+    sync = torch.device(dev).type == "cuda"
+    with _deterministic():
+        solver = PoseSolver(spec["pose_sp"], cfg, lambda: next(feed),
+                            net_params=tame_params(cfg), mesh=mesh, target_cfg=spec["tcfg"],
+                            target_stats=spec["stats"], handle_signals=False,
+                            log=lambda *_: None, eval_fn=eval_fn,
+                            device=None if mesh is not None else dev)
+        out = {"before": weights(solver), "poses": poses, "ms": [], "losses": [],
+               "steps": [], "snapshots": []}
+        for k in range(1, S_STEPS + 1):
+            ms, losses = _timed_steps(solver, 1, sync)
+            out["ms"] += ms
+            out["losses"] += losses
+            out["steps"].append(weights(solver))
+            if mesh is not None:
+                Path(solver.params_cfg.snapshot_prefix).parent.mkdir(parents=True,
+                                                                     exist_ok=True)
+                out["snapshots"].append(solver.snapshot(export_caffemodel=False))
+        out["weights"] = out["steps"][-1]
+        if mesh is not None:
+            solver.restore(out["snapshots"][0])
+            with _other_order(dev):
+                solver.step(1)
+            out["reordered"] = (float(solver._loss_window[-1]), weights(solver),
+                                _worst_leaf(solver, out["snapshots"][1]))
+        if torch.device(dev).type == "cuda":
+            out["profile"] = _device_profile(lambda: solver.step(1), steps=2)[:2]
+        del solver
+        mixed = PoseSolver(spec["pose_sp"], dataclasses.replace(cfg, mixed_train=True),
+                           lambda: spec["pose_batches"][0], net_params=tame_params(cfg),
+                           mesh=mesh, target_cfg=spec["tcfg"], target_stats=spec["stats"],
+                           handle_signals=False, log=lambda *_: None,
+                           device=None if mesh is not None else dev)
+        out["mixed_ms"], out["mixed_losses"] = _timed_steps(
+            mixed, 1, torch.device(dev).type == "cuda")
+    return out
+
+
+def _other_order(dev):
+    """Other summation orders for the convolutions inside: cuDNN's
+    benchmark-chosen algorithms on the card, oneDNN off on the CPU."""
+    if torch.device(dev).type == "cuda":
+        cudnn = torch.backends.cudnn
+        return torch.backends.cudnn.flags(enabled=True, benchmark=True, deterministic=False,
+                                          allow_tf32=cudnn.allow_tf32)
+    return torch.backends.mkldnn.flags(enabled=False)
+
+
+def _worst_leaf(solver, path: str):
+    """The largest gap of any param or solver-state leaf of `solver` from
+    the snapshot at `path`, over that leaf's largest magnitude: -> (gap,
+    leaf)."""
+    from deepcut_tpu_torch.solver.solver import load_checkpoint
+
+    params, state = load_checkpoint(path)
+    trees = [("", params, solver.net_params)] + [
+        (f"{key} ", state[key], solver.state[key]) for key in state if key != "iter"]
+    worst = (0.0, "")
+    for tag, want, live in trees:
+        for n, entry in want.items():
+            for k, v in entry.items():
+                gap = _rel_gap(live[n][k].detach().cpu().numpy(), np.asarray(v))
+                if gap > worst[0]:
+                    worst = (gap, f"{tag}{n}.{k}")
+    return worst
+
+
+def _s1_replay(spec: dict, snapshots) -> dict:
+    """S1's witness in one process: from the ranks' snapshot after step k,
+    step k + 1 alone ("steps": its loss, its weights and the worst leaf
+    against the ranks' snapshot after step k + 1), and from the first
+    snapshot every later step ("free": where one process's own trajectory
+    goes from the ranks' first step)."""
+    from deepcut_tpu_torch.solver.solver import PoseSolver
+
+    cfg = deepercut_config(spec["depth"], pairwise=False)
+    feed = itertools.cycle(spec["pose_batches"])
+    out = {"steps": [], "free": []}
+
+    def taken(solver):
+        return (float(solver._loss_window[-1]),
+                {n: solver.net_params[n]["w"].detach().cpu().numpy().copy() for n in S_POSE_BLOBS})
+
+    with _deterministic():
+        solver = PoseSolver(spec["pose_sp"], cfg, lambda: next(feed),
+                            net_params=tame_params(cfg), target_cfg=spec["tcfg"],
+                            target_stats=spec["stats"], handle_signals=False,
+                            log=lambda *_: None, device=spec["device"])
+        for k in range(1, S_STEPS):
+            solver.restore(snapshots[k - 1])
+            solver.step(1)
+            out["steps"].append(taken(solver) + (_worst_leaf(solver, snapshots[k]),))
+            if k == 1:
+                out["free"].append(taken(solver))
+                for _ in range(S_STEPS - 2):
+                    solver.step(1)
+                    out["free"].append(taken(solver))
+    return out
+
+
+def _s2_graph(spec: dict, mesh) -> dict:
+    """S2: E(b)'s ResNet prototxt with the heads' losses through GraphSolver
+    on the staged batch (deterministic cuDNN): the first step's loss and
+    update (as E(b)), then S_STEPS steps timed; the split it logged."""
+    from deepcut_tpu_torch.core.graph import Net
+    from deepcut_tpu_torch.solver.solver import GraphSolver
+
+    dev = mesh.device if mesh is not None else spec["device"]
+    lines = []
+    with _deterministic():
+        net = Net(spec["graph_proto"], weights=spec["graph_weights"], phase="TRAIN",
+                  compute_dtype=None, device=dev)
+        solver = GraphSolver(spec["graph_sp"], net, mesh=mesh, handle_signals=False,
+                             log=lines.append, device=None if mesh is not None else dev)
+        solver.extra_inputs = {k: torch.from_numpy(v).to(dev) for k, v in spec["staged"].items()}
+        before = {n: net.params[n]["w"].detach().cpu().numpy().copy() for n in ENGINE_POSE_BLOBS}
+        solver.step(1)
+        out = {"loss": float(solver._loss_window[-1]),
+               "weights": {n: net.params[n]["w"].detach().cpu().numpy().copy() for n in before},
+               "before": before,
+               "log": [ln for ln in lines if ln.startswith("spatial graph")], "boundary": None}
+        out["ms"], out["losses"] = _timed_steps(solver, S_STEPS, torch.device(dev).type == "cuda")
+        plans = list(getattr(solver._step_fn, "plans", {}).values())
+        if plans:
+            boundary, _, _, gather = plans[0]
+            out["boundary"] = (boundary, net._plan[boundary][1].name, len(net._plan), gather)
+        if torch.device(dev).type == "cuda":
+            out["profile"] = _device_profile(lambda: solver.step(1), steps=2)[:2]
+    solver.close()
+    return out
+
+
+def _s3_serving(spec: dict, mesh) -> dict:
+    """S3: PoseEstimator(max_size=S_HD[1]) in bf16 over the HD frame and the
+    688x688 frame, its pose through the decode's probability-map entry, then
+    int8 calibrated on a 480x640 frame over the HD frame; each scoremaps
+    call timed."""
+    dev = mesh.device if mesh is not None else spec["device"]
+    cuda = torch.device(dev).type == "cuda"
+    params = spec["serve_params"]
+    cfg = deepercut_config(spec["depth"])
+    est = PoseEstimator({n: {k: torch.from_numpy(v) for k, v in e.items()}
+                         for n, e in params.items()}, cfg, max_size=S_HD[1], mesh=mesh,
+                        device=dev)
+    out = {"maps": {}, "ms": {}, "profile": {}}
+    for name, img in (("hd", spec["hd"]), ("688", spec["f688"])):
+        out["maps"][name] = est.scoremaps(img)
+        if cuda:
+            out["ms"][name] = _events_ms(lambda: est.scoremaps(img), iters=3, warmup=1)
+            out["profile"][name] = _device_profile(lambda: est.scoremaps(img), steps=2)[:2]
+    out["pose"] = est.estimate_pose(spec["hd"])
+    del est
+    est8 = PoseEstimator({n: {k: torch.from_numpy(v) for k, v in e.items()}
+                          for n, e in params.items()}, cfg, max_size=S_HD[1], mesh=mesh,
+                         device=dev)
+    est8.quantize_int8(spec["calib"])
+    out["scales"] = dict(est8.model.act_scales)
+    out["maps"]["int8"] = est8.scoremaps(spec["hd"])
+    if cuda:
+        out["ms"]["int8"] = _events_ms(lambda: est8.scoremaps(spec["hd"]), iters=3, warmup=1)
+        out["profile"]["int8"] = _device_profile(lambda: est8.scoremaps(spec["hd"]), steps=2)[:2]
+    return out
+
+
+def _s_rank(rank: int, port: int, spec_path: str, out_dir: str) -> None:
+    """One of S's two ranks: a gloo group on localhost, a (1, 2) mesh over
+    CUDA tensors; its launches counted and its new launch geometries
+    replayed against the plain kernels."""
+    import pickle
+
+    from deepcut_tpu_torch.parallel import distributed
+    from deepcut_tpu_torch.parallel.mesh import make_mesh
+
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    dev = distributed.initialize(f"tcp://127.0.0.1:{port}", 2, rank, device=spec["device"],
+                                 backend="gloo")
+    try:
+        mesh = make_mesh(2, spatial=2, device=dev)
+        if spec["device"] != "cpu":
+            _zero_counts()
+            _record_geometries(True)
+        out = {"s1": _s1_pose(spec, mesh), "s2": _s2_graph(spec, mesh),
+               "s3": _s3_serving(spec, mesh)}
+        if spec["device"] != "cpu":
+            out["counts"] = _counts()
+            epilogue, recorded = _record_geometries(False)
+            out["replayed"] = replay_path_geometries(epilogue, recorded, device=str(dev))
+            out["im2col_pads"] = sorted({g[3] for g in recorded.get("im2col_launches", {})})
+        with open(Path(out_dir) / f"s_rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        distributed.shutdown()
+
+
+def _rel_gap(a, b) -> float:
+    """max |a - b| over max |b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+S_FAILURES: list = []   # phase S's readings outside their bounds, raised after its log
+
+
+def _held(what: str, gap: float, bound: float) -> str:
+    """gap as text; a gap above bound joins S_FAILURES."""
+    if not gap <= bound:
+        S_FAILURES.append(f"{what}: {gap:.3g} apart from one process (held to {bound})")
+    return f"{gap:.3g}"
+
+
+def phase_spatial(root: Path, card: str, device: str = "cuda", depth: int = 152,
+                  size: int = 688, hd=S_HD, tile: int = S_TILE) -> dict:
+    """S: the spatial axis on two spawned ranks of a (1, 2) mesh on the one
+    card, over gloo, against one process: S1 PoseSolver at full width, S2
+    the graph engine's spatial step, S3 HD serving (bf16 and int8), each
+    compared and timed (one card over gloo: not a scaling measurement).
+    `device`, `depth`, `size`, `hd` and `tile` other than the card's are
+    for rehearsing off the card."""
+    import multiprocessing as mp
+    import pickle
+
+    from deepcut_tpu_torch.models.convert import save_caffemodel
+    from deepcut_tpu_torch.parallel.train_step import to_device
+    from deepcut_tpu_torch.solver.solver import SolverParams
+
+    cfg = deepercut_config(depth, pairwise=False)
+    pose_sp, tcfg, stats, batches = pose_batches(root, "s1", 1, 1, size)
+    pose_sp.config = dataclasses.replace(pose_sp.config, base_lr=M3_POSE_LR,
+                                         stagelr=tuple(M3_POSE_LR for _ in pose_sp.config.stagelr))
+    pose_sp.test_interval = 10 ** 6       # the eval hook at iteration 0 only
+    # S2: E(b)'s net and staged batch (dense host targets), at M3's rate
+    graph_sp = SolverParams.from_prototxt(str(write_solver(
+        root, write_frames(root / "s2_frames", np.random.RandomState(SEED), 1, size, size),
+        "s2", 10 ** 6, 0, display=0, no_jitter=True)))
+    graph_sp.config = dataclasses.replace(graph_sp.config, base_lr=M3_POSE_LR,
+                                          stagelr=tuple(M3_POSE_LR for _ in graph_sp.config.stagelr))
+    from deepcut_tpu_torch.tools.cli import pose_data
+
+    _, _, src, _ = pose_data(graph_sp, host_targets=True, workers=0)
+    try:
+        batch = src.next_batch(1)
+    finally:
+        src.close()
+    weights = root / "s2_tamed.caffemodel"
+    save_caffemodel(str(weights), tame_params(cfg))
+    host = to_device(batch, "cpu")
+    staged = {k: v.contiguous().numpy() for k, v in host.items() if k != "image"}
+    staged["data"] = (host["image"].float() - torch.tensor(MEAN_BGR_T).reshape(1, 3, 1, 1)).numpy()
+    serve = tame_params(deepercut_config(depth))
+    for n in ("res5c_up_pose", "res3d_pose"):   # unsaturated pose maps: strict maxima exist
+        serve[n] = {k: v / 30.0 for k, v in serve[n].items()}
+    rng = np.random.RandomState(SEED + 9)
+    spec = {"device": "cuda:0" if device == "cuda" else device, "depth": depth,
+            "pose_sp": pose_sp, "tcfg": tcfg, "stats": stats, "pose_batches": batches,
+            "eval_frame": frame(rng, 480, 640),
+            "graph_proto": str(engine_pose_prototxt(root, cfg, batch)),
+            "graph_weights": str(weights), "graph_sp": graph_sp, "staged": staged,
+            "serve_params": {n: {k: v.numpy() for k, v in e.items()} for n, e in serve.items()},
+            "hd": draw_people(hd[0], hd[1], 4, rng), "f688": frame(rng, size, size),
+            "calib": frame(rng, 480, 640)}
+    spec_path = root / "s_spec.pkl"
+    with open(spec_path, "wb") as f:
+        pickle.dump(spec, f)
+    t0 = time.perf_counter()
+    single = {"s1": _s1_pose(spec, None), "s2": _s2_graph(spec, None),
+              "s3": _s3_serving(spec, None)}
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    port = _free_port()
+    procs = [ctx.Process(target=_s_rank, args=(r, port, str(spec_path), str(root)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(S_JOIN_S)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if [p.exitcode for p in procs] != [0, 0]:
+        raise AssertionError(f"S: the ranks exited {[p.exitcode for p in procs]} (gloo over "
+                             "CUDA tensors, a (1, 2) mesh on one card; their errors are above)")
+    t2 = time.perf_counter()
+    ranks = []
+    for r in range(2):
+        with open(root / f"s_rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+
+    # S1
+    want = single["s1"]
+    replay = _s1_replay(spec, ranks[0]["s1"]["snapshots"])
+
+    def step_gaps(loss, w, w_prev, loss_ref, w_ref, w_ref_prev):
+        """One step against another from the same state (or the same init):
+        {what: (gap, bound)} at M3's bounds."""
+        gaps = {"loss": (_rel_gap([loss], [loss_ref]), S_LOSS_RTOL),
+                "conv1 update": (_rel_gap(w_prev["conv1"] - w["conv1"],
+                                          w_ref_prev["conv1"] - w_ref["conv1"]), S_CONV1_RTOL)}
+        gaps.update({n: (_rel_gap(w[n], w_ref[n]),
+                         S_CONV1_RTOL if n == "conv1" else S_WEIGHT_RTOL) for n in S_POSE_BLOBS})
+        return gaps
+
+    def held_txt(what, gaps):
+        return ", ".join(f"{k} {_held(f'{what} {k}', g, b)} (held to {b})"
+                         for k, (g, b) in gaps.items())
+
+    per_step = []
+    for r, res in enumerate(ranks):
+        got = res["s1"]
+        texts = [held_txt(f"S1 rank {r} step 1", step_gaps(
+            got["losses"][0], got["steps"][0], got["before"], want["losses"][0],
+            want["steps"][0], want["before"]))]
+        for k in range(1, S_STEPS):     # step k + 1 from rank 0's snapshot after step k
+            loss, w, _ = replay["steps"][k - 1]
+            texts.append(held_txt(f"S1 rank {r} step {k + 1} (from the ranks' step {k})",
+                                  step_gaps(got["losses"][k], got["steps"][k],
+                                            ranks[0]["s1"]["steps"][k - 1], loss, w,
+                                            ranks[0]["s1"]["steps"][k - 1])))
+        per_step.append("; ".join(f"step {k + 1}: {t}" for k, t in enumerate(texts)))
+        traj = {"losses": (_rel_gap(got["losses"], want["losses"]), S_TRAJ_LOSS_RTOL)}
+        traj.update({n: (_rel_gap(got["weights"][n], want["weights"][n]),
+                         S_TRAJ_CONV1_RTOL if n == "conv1" else S_WEIGHT_RTOL)
+                     for n in S_POSE_BLOBS})
+        traj_txt = held_txt(f"S1 rank {r} step {S_STEPS}", traj)
+        mixed = _held(f"S1 -mixed_precision rank {r} loss",
+                      _rel_gap(got["mixed_losses"], want["mixed_losses"]), S_MIXED_LOSS_RTOL)
+    # the witnesses: one process's own trajectory from the ranks' first
+    # step; every leaf of each step against one process's from the same
+    # state; the ranks' second step in another summation order
+    free = [loss for loss, _ in replay["free"]]
+    amp_loss = _rel_gap(want["losses"][:1] + free, want["losses"])
+    amp_conv1 = _rel_gap(replay["free"][-1][1]["conv1"], want["weights"]["conv1"])
+    leaves = ", ".join(f"step {k + 2} {g:.3g} ({leaf})"
+                       for k, (_, _, (g, leaf)) in enumerate(replay["steps"]))
+    r_loss, r_w, (r_gap, r_leaf) = ranks[0]["s1"]["reordered"]
+    reordered = (f"loss {_rel_gap([r_loss], ranks[0]['s1']['losses'][1:2]):.3g}, conv1 update "
+                 + "{:.3g}".format(_rel_gap(ranks[0]["s1"]["steps"][0]["conv1"] - r_w["conv1"],
+                                            ranks[0]["s1"]["steps"][0]["conv1"]
+                                            - ranks[0]["s1"]["steps"][1]["conv1"]))
+                 + f", every leaf {r_gap:.3g} ({r_leaf})")
+    twins = max(float(np.abs(a[n] - b[n]).max()) for a, b in
+                zip(ranks[0]["s1"]["steps"], ranks[1]["s1"]["steps"]) for n in S_POSE_BLOBS)
+    if len(ranks[0]["s1"]["poses"]) != 1 or ranks[1]["s1"]["poses"] or not all(
+            np.isfinite(p).all() for p in ranks[0]["s1"]["poses"]):
+        raise AssertionError("S1: the eval hook ran off the coordinator or gave a bad pose")
+    log(f"S1 PoseSolver ResNet-{depth}, {size}x{size} frame (canvas "
+        f"{batches[0]['image'].shape[1]}), batch 1, f32 (TF32 off), deterministic cuDNN, "
+        f"(data=1, spatial=2) over gloo against one process: losses "
+        f"{', '.join(f'{v:.7f}' for v in want['losses'])} (one process), "
+        f"{', '.join(f'{v:.7f}' for v in ranks[0]['s1']['losses'])} (two ranks); relative gaps "
+        f"(weights and updates over their largest magnitude) of each step against one "
+        f"process's step from the same state (step 1 from the init, each later step from the "
+        f"ranks' snapshot of the step before): " + " | ".join(per_step)
+        + f"; the free trajectory after {S_STEPS} steps: {traj_txt}; the witnesses: one process "
+        f"from the ranks' step-1 snapshot reaches step {S_STEPS} {amp_loss:.3g} (losses) and "
+        f"{amp_conv1:.3g} (conv1) from its own trajectory; the largest gap of any param or "
+        f"momentum leaf from one process's step from the same state: {leaves}; the ranks' step 2 "
+        f"from the same state in another summation order against their own: {reordered}; the "
+        f"two ranks' weights differ by "
+        f"at most {twins:.3g}; -mixed_precision step loss {want['mixed_losses'][0]:.6f}, "
+        f"relative {mixed} (held to {S_MIXED_LOSS_RTOL}); the eval hook decoded on rank 0 alone")
+    # S2
+    want = single["s2"]
+    for r, res in enumerate(ranks):
+        got = res["s2"]
+        gaps = {"loss": (_rel_gap([got["loss"]], [want["loss"]]), S_LOSS_RTOL),
+                "conv1 update": (_rel_gap(got["before"]["conv1"] - got["weights"]["conv1"],
+                                          want["before"]["conv1"] - want["weights"]["conv1"]),
+                                 S_CONV1_RTOL)}
+        gaps.update({n: (_rel_gap(got["weights"][n], want["weights"][n]),
+                         S_CONV1_RTOL if n == "conv1" else S_WEIGHT_RTOL)
+                     for n in ENGINE_POSE_BLOBS})
+        parts = ", ".join(f"{k} {_held(f'S2 rank {r} {k}', g, b)} (held to {b})"
+                          for k, (g, b) in gaps.items())
+    boundary = ranks[0]["s2"]["boundary"]
+    if boundary is None or not boundary[1].startswith(("res5c_up_", "res3d_")) \
+            or ranks[1]["s2"]["log"] or len(ranks[0]["s2"]["log"]) != 1:
+        raise AssertionError(f"S2: the split {boundary}, logged {ranks[0]['s2']['log']} / "
+                             f"{ranks[1]['s2']['log']}: the trunk should shard up to the heads")
+    log(f"S2 GraphSolver on {Path(spec['graph_proto']).name} (ResNet-{depth} + the heads' "
+        f"losses), (1, 2) mesh against one process: {ranks[0]['s2']['log'][0]}; the first "
+        f"step's loss {want['loss']:.6f}; relative gaps (weights and conv1's update over their "
+        f"largest magnitude): {parts}; then losses "
+        + ", ".join(f"{v:.6f}" for v in want["losses"])
+        + " (one process), " + ", ".join(f"{v:.6f}" for v in ranks[0]["s2"]["losses"])
+        + " (two ranks)")
+    # S3
+    want = single["s3"]
+    lines = []
+    for r, res in enumerate(ranks):
+        if res["s3"]["scales"] != want["scales"]:
+            raise AssertionError(f"S3 int8 rank {r}: calibration scales differ from one "
+                                 "process's")
+    for name in ("hd", "688", "int8"):
+        worst = 0.0
+        for r, res in enumerate(ranks):
+            steps = 0.0
+            for g, w in zip(res["s3"]["maps"][name], want["maps"][name]):
+                g, w = torch.from_numpy(g), torch.from_numpy(w)
+                if g.shape != w.shape:
+                    raise AssertionError(f"S3 {name} rank {r}: maps {g.shape} against {w.shape}")
+                steps = max(steps, _steps_bf16(g, w, torch.full_like(w, float(w.abs().max()))))
+            if not steps <= S_MAP_STEPS:
+                S_FAILURES.append(f"S3 {name} rank {r}: {steps} bf16 steps off one process "
+                                  f"(held to {S_MAP_STEPS})")
+            worst = max(worst, steps)
+        lines.append(f"{name} maps {tuple(g.shape)} within {worst:.3g} bf16 steps at each "
+                     f"map's largest magnitude"
+                     + (f" ({len(want['scales'])} scales equal to one process's)"
+                        if name == "int8" else ""))
+    try:
+        agreement(ranks[0]["s3"]["pose"], want["pose"], "S3 HD pose (the decode's prob entry) "
+                  "against one process's")
+    except AssertionError as e:
+        S_FAILURES.append(str(e))
+    # the keypoints: the mesh's against one process's full frame and the tiled path
+    tiled = PoseEstimator({n: {k: torch.from_numpy(v) for k, v in e.items()}
+                           for n, e in spec["serve_params"].items()}, deepercut_config(depth),
+                          max_size=tile, device=spec["device"])
+    sm_m = ranks[0]["s3"]["maps"]["hd"][0]
+    for what, other in (("one process", want["maps"]["hd"][0]),
+                        (f"the tiled path (max_size {tile})", tiled.scoremaps(spec["hd"])[0])):
+        n, d = keypoints_agree(sm_m, other, f"S3 keypoints against {what}")
+        lines.append(f"{n} clear strict local maxima as {what}'s (maps within {d:.3g})")
+    del tiled
+    log(f"S3 PoseEstimator(max_size={hd[1]}, mesh=(1, 2)) ResNet-{depth} bf16 on a "
+        f"{hd[0]}x{hd[1]} frame and a {size}x{size} frame against one process: "
+        + "; ".join(lines))
+    counts = {k: sum(res.get("counts", {}).get(k, 0) for res in ranks) for k in KERNELS}
+    if device == "cuda":
+        pads = sorted({p for res in ranks for p in res["im2col_pads"]})
+        if not any(p[0] != p[1] for p in pads):
+            raise AssertionError(f"S: no int8_im2col launch with pad_h != pad_w ({pads})")
+        log(f"S: the ranks' new launch geometries replayed against the plain kernels, bit for "
+            f"bit: {ranks[0]['replayed']} (rank 0), {ranks[1]['replayed']} (rank 1); "
+            f"int8_im2col pads {pads}")
+        busy = lambda res, k: "{:.3f} ms busy, {:.0f} ops".format(*res[k])  # noqa: E731
+        log(f"time [{card}]: S (one card, two gloo ranks, not a scaling figure) S1 "
+            f"PoseSolver.step ResNet-{depth} batch 1 f32: one process "
+            + ", ".join(f"{v:.3f}" for v in single["s1"]["ms"]) + f" ms ({busy(single['s1'], 'profile')}"
+            "); two ranks " + " | ".join(", ".join(f"{v:.3f}" for v in res["s1"]["ms"])
+                                         + f" ({busy(res['s1'], 'profile')})" for res in ranks)
+            + f" ms; mixed step one process {single['s1']['mixed_ms'][0]:.3f} ms, two ranks "
+            + " | ".join(f"{res['s1']['mixed_ms'][0]:.3f}" for res in ranks)
+            + f" ms. S2 GraphSolver.step: one process "
+            + ", ".join(f"{v:.3f}" for v in single["s2"]["ms"]) + f" ms ({busy(single['s2'], 'profile')}"
+            "); two ranks " + " | ".join(", ".join(f"{v:.3f}" for v in res["s2"]["ms"])
+                                         + f" ({busy(res['s2'], 'profile')})" for res in ranks)
+            + " ms (wall per step). S3 scoremaps (CUDA events per call; device busy per call "
+            "from the profiler): " + "; ".join(
+                f"{name}: one process {single['s3']['ms'][name]:.3f} ms "
+                f"({busy(single['s3']['profile'], name)}), two ranks "
+                + " | ".join(f"{res['s3']['ms'][name]:.3f} ms ({busy(res['s3']['profile'], name)})"
+                             for res in ranks) for name in ("hd", "688", "int8")))
+    log(f"phase S: one process {t1 - t0:.1f} s, the two ranks {t2 - t1:.1f} s with their start")
+    if S_FAILURES:
+        raise AssertionError("S: " + "; ".join(S_FAILURES))
+    return {"single": single, "ranks": ranks, "counts": counts}
+
+
 # -- 6. times ----------------------------------------------------------------
 def _events_ms(fn, iters: int, warmup: int = 3, before=None) -> float:
     """CUDA-event ms per call of `fn`: the calls back to back, or, with
@@ -3354,13 +3957,19 @@ def main() -> int:
     _zero_counts()                               # MatCaffe and data parallel start here
     phase_matcaffe_dp(card)
     matcaffe_dp = _counts()                      # and end here
+    _zero_counts()                               # the spatial axis: its two ranks zero
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_s_") as tmp:   # their own counts
+        spatial = phase_spatial(Path(tmp), card)["counts"]             # and read them here
+    spatial_ref = _counts()                      # S's one-process references: not counted
     replay_path_geometries(*_record_geometries(False))
     _zero_counts()                               # the engine's training path starts here
     phase_engine(card)
     engine = _counts()                           # and ends here
     log(f"kernel launches: serving path {serving}, int8 serving path {int8}, "
         f"training path {training}, graph engine path {graph}, data slice path {data}, "
-        f"MatCaffe + data-parallel path {matcaffe_dp}, engine training path {engine}")
+        f"MatCaffe + data-parallel path {matcaffe_dp}, spatial path (its two ranks) {spatial} "
+        f"(and S's one-process references {spatial_ref}, not counted), engine training path "
+        f"{engine}")
     if any(engine.values()):   # f32 training: no bf16 rounding, no int8
         raise AssertionError(f"the engine's f32 training launched {engine}")
     for path, counts, need in (("serving", serving, ("conv_epilogue", "decode_pose",
@@ -3370,7 +3979,8 @@ def main() -> int:
                                ("graph engine", graph, ("conv_epilogue", "quantize_i8",
                                                         "int8_im2col", "int8_epilogue")),
                                ("data slice", data, ("conv_epilogue",)),
-                               ("MatCaffe + data-parallel", matcaffe_dp, ("decode_pose",))):
+                               ("MatCaffe + data-parallel", matcaffe_dp, ("decode_pose",)),
+                               ("spatial", spatial, KERNELS)):
         idle = [k for k in need if counts[k] == 0]
         if idle:
             raise AssertionError(f"the {path} path never launched {idle}")
@@ -3386,7 +3996,7 @@ def main() -> int:
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": (serving[name] + int8[name] + training[name] + graph[name] + data[name]
-                      + matcaffe_dp[name] + engine[name]),
+                      + matcaffe_dp[name] + spatial[name] + engine[name]),
          "max_abs_err": errs[name],
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",

@@ -928,7 +928,7 @@ class Net:
             for n, e in leaves.items()}
         return leaves, rounded
 
-    def make_train_step(self, solver_cfg, *, lr_mults: bool = True, mesh=None):
+    def make_train_step(self, solver_cfg, *, lr_mults: bool = True, mesh=None, log=None):
         """``step(params, state, inputs) -> (params, state, loss)``: forward,
         backward and the Caffe update rule over this graph, IN PLACE on
         `params` and `state` (`solver.update_rules.step`), returned.
@@ -943,26 +943,31 @@ class Net:
         step's stochastic draws come from (the net's seed, the iteration,
         the micro-batch, the layer). The loss is a 0-dim f32 tensor.
 
-        mesh: a data-parallel `parallel.mesh.Mesh`. Every rank passes the
-        GLOBAL inputs (batch dim behind the iter_size axis) and holds the
-        same params; it keeps its rows, runs them under global-batch
-        semantics (`parallel.mesh.data_parallel`: the losses' normalisers,
+        mesh: a `parallel.mesh.Mesh`. Every rank passes the GLOBAL inputs
+        (batch dim behind the iter_size axis) and holds the same params; it
+        keeps its rows, runs them under global-batch semantics
+        (`parallel.mesh.data_parallel`: the losses' normalisers,
         BatchNorm's moments and moving averages, the stochastic draws) and
         sums the gradients over the ranks in flat buckets before the
         update, so every rank takes the single-device step on the global
         batch and returns the global loss (the JAX package's jit over a
-        'data' mesh)."""
-        from deepcut_tpu_torch.parallel.mesh import (
-            all_reduce_sum, check_data_mesh, data_parallel, shard_batch)
+        'data' mesh). A mesh with a 'spatial' axis also shards the image
+        rows up to the plan's gather boundary
+        (`parallel.graph_spatial.make_graph_spatial_train_step`, which
+        reports the split through `log`)."""
+        from deepcut_tpu_torch.parallel.mesh import all_reduce_sum, data_parallel, shard_batch
         from deepcut_tpu_torch.solver import update_rules
-
-        check_data_mesh(mesh)
 
         def mults(table):
             return {name: {k: table.get(name, {}).get(k, 1.0) for k in entry}
                     for name, entry in self.params.items()} if lr_mults and table else None
         lrm, dcm = mults(self._lr_mults), mults(self._decay_mults)
         iter_size = max(int(getattr(solver_cfg, "iter_size", 1)), 1)
+        if mesh is not None and mesh.spatial > 1:
+            from deepcut_tpu_torch.parallel.graph_spatial import make_graph_spatial_train_step
+
+            return make_graph_spatial_train_step(self, solver_cfg, mesh, lr_mults=lrm,
+                                                 decay_mults=dcm, iter_size=iter_size, log=log)
 
         def one_grad(params, inputs, stream):
             leaves, used = self._grad_params(params)

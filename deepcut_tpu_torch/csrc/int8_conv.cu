@@ -23,7 +23,8 @@
 //   caller zeroes any padding), K ordered (kh, kw, C) like the packed weights;
 //   zero where the tap falls outside the image or between the pixels of
 //   an input dilated by `lhs` (the int8 deconv: lhs 2, pad 2, the flipped
-//   kernel packed by the wrapper).
+//   kernel packed by the wrapper). The pads of H and W are separate: a
+//   row-sharded conv reads its halo rows as they are (pad_h 0) and pads W.
 // - epilogue: acc, P = N*H*W rows of ldc >= C int32 (the GEMM's output,
 //   its width padded to 8); scale, bias (C,) f32; residual (N, C, H, W)
 //   f32 or int8 with channel stride 1 and any pixel strides (a top-left
@@ -80,7 +81,8 @@ struct Bytes<1> {
 template <int V>
 __global__ void __launch_bounds__(kThreads)
 im2col_kernel(const signed char* __restrict__ x, signed char* __restrict__ out, int H, int W,
-              int C, int kw, int stride, int pad, int dil, int lhs, int oh, int ow, int rows,
+              int C, int kw, int stride, int pad_h, int pad_w, int dil, int lhs, int oh, int ow,
+              int rows,
               int taps, long long ldk) {
   using T = typename Bytes<V>::T;
   const int cv = C / V;                 // vectors per tap
@@ -100,8 +102,8 @@ im2col_kernel(const signed char* __restrict__ x, signed char* __restrict__ out, 
     const int t = m / ow;
     const int oy = t % oh;
     const int n = t / oh;
-    int py = oy * stride + i * dil - pad;
-    int px = ox * stride + j * dil - pad;
+    int py = oy * stride + i * dil - pad_h;
+    int px = ox * stride + j * dil - pad_w;
     bool inside = py >= 0 && py < hd && px >= 0 && px < wd;
     if (lhs > 1) {
       inside = inside && py % lhs == 0 && px % lhs == 0;
@@ -269,23 +271,23 @@ int grid_for(long long work) {
 // alignment and divisibility (see ops/int8_conv.py) and sizes below 2**31
 // rows / pixels.
 extern "C" int int8_im2col_launch(const signed char* x, signed char* out, int N, int H, int W,
-                                  int C, int kh, int kw, int stride, int pad, int dil, int lhs,
-                                  int oh, int ow, int rows, int ldk, int vec, int device,
-                                  cudaStream_t stream) {
+                                  int C, int kh, int kw, int stride, int pad_h, int pad_w,
+                                  int dil, int lhs, int oh, int ow, int rows, int ldk, int vec,
+                                  int device, cudaStream_t stream) {
   (void)N;  // rows = N * oh * ow
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long vecs = static_cast<long long>(rows) * kh * kw * (C / vec);
   const int grid = grid_for(vecs);
   if (vec == 16) {
-    im2col_kernel<16><<<grid, kThreads, 0, stream>>>(x, out, H, W, C, kw, stride, pad, dil, lhs,
-                                                     oh, ow, rows, kh * kw, ldk);
+    im2col_kernel<16><<<grid, kThreads, 0, stream>>>(x, out, H, W, C, kw, stride, pad_h, pad_w,
+                                                     dil, lhs, oh, ow, rows, kh * kw, ldk);
   } else if (vec == 4) {
-    im2col_kernel<4><<<grid, kThreads, 0, stream>>>(x, out, H, W, C, kw, stride, pad, dil, lhs,
-                                                    oh, ow, rows, kh * kw, ldk);
+    im2col_kernel<4><<<grid, kThreads, 0, stream>>>(x, out, H, W, C, kw, stride, pad_h, pad_w,
+                                                    dil, lhs, oh, ow, rows, kh * kw, ldk);
   } else {
-    im2col_kernel<1><<<grid, kThreads, 0, stream>>>(x, out, H, W, C, kw, stride, pad, dil, lhs,
-                                                    oh, ow, rows, kh * kw, ldk);
+    im2col_kernel<1><<<grid, kThreads, 0, stream>>>(x, out, H, W, C, kw, stride, pad_h, pad_w,
+                                                    dil, lhs, oh, ow, rows, kh * kw, ldk);
   }
   return static_cast<int>(cudaGetLastError());
 }

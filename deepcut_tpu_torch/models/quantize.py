@@ -27,7 +27,11 @@ kw)``; `models.convert.qparams_from_numpy` carries the JAX package's
 as buffers packed once for the GEMM, the per-channel dequantization scales
 ``s_x * w_scale`` and the activation scales. It exposes `fused_heads` and
 `forward` as `models.resnet.DeeperCut` does, so `pose.estimate` serves
-either model the same way.
+either model the same way, row-sharded too (``rows``,
+`parallel.spatial.RowShards`): each trunk conv reads its halo rows (int8
+rows for the int8 convs, whose im2col then pads W alone), the stem pool
+its -inf halo, and the heads, the int8 deconv included, run on the
+gathered taps.
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ import torch
 from torch import nn
 
 from deepcut_tpu_torch.models.resnet import (
-    DeeperCutConfig, Params, _block_names, _head_list, _skip_block, fold_bn, prepare_input)
+    DeeperCutConfig, Params, _block_names, _head_list, _skip_block, fold_bn, local_conv,
+    local_pool, prepare_input)
 from deepcut_tpu_torch.ops.activations import relu, sigmoid
 from deepcut_tpu_torch.ops.conv import (
     conv2d, conv2d_f32, conv2d_rounded, deconv2d, deconv2d_rounded)
@@ -183,7 +188,13 @@ class _QConv(nn.Module):
         self.register_buffer("scale", torch.tensor(s_x, dtype=torch.float32) * w_scale.float())
         self.register_buffer("bias", b.float().contiguous())
 
-    def forward(self, x_q: torch.Tensor, *, stride=1, pad=0, dilation=1, lhs_dilation=1, **epi):
+    def forward(self, x_q: torch.Tensor, *, stride=1, pad=0, dilation=1, lhs_dilation=1,
+                rows=None, **epi):
+        """rows (`parallel.spatial.RowShards`): x_q is a row block; its halo
+        rows are fetched and the conv pads W alone."""
+        if rows is not None:
+            x_q = rows.halo(x_q, self.k, stride, pad, dilation)
+            pad = (0, pad)
         acc = conv_i8(x_q, self.packed, self.cout, self.k, stride=stride, pad=pad,
                       dilation=dilation, lhs_dilation=lhs_dilation)
         return int8_epilogue(acc, self.scale, self.bias, **epi)
@@ -276,24 +287,29 @@ class DeeperCutInt8(nn.Module):
         return self._packs[names]
 
     # -- the forward ----------------------------------------------------------
-    def _stem(self, x: torch.Tensor) -> torch.Tensor:
+    def _stem(self, x: torch.Tensor, rows=None) -> torch.Tensor:
         """bf16 conv1 (+ ReLU) and the pool, as the float serving forward."""
         x = prepare_input(x).to(self.cfg.compute_dtype).float()
+        conv = local_conv if rows is None else rows.conv
         if self.bf16:
-            y = conv2d_rounded(x, self.conv1_w, self.conv1_b, stride=2, pad=3, relu=True)
+            y = conv(conv2d_rounded, x, self.conv1_w, self.conv1_b, stride=2, pad=3, relu=True)
         else:
-            y = relu(conv2d(x, self.conv1_w, self.conv1_b, stride=2, pad=3,
-                            compute_dtype=torch.float32))
-        return max_pool2d(y, kernel=3, stride=2)
+            y = relu(conv(conv2d, x, self.conv1_w, self.conv1_b, stride=2, pad=3,
+                          compute_dtype=torch.float32))
+        return local_pool(y) if rows is None else rows.pool(y)
 
-    def run_trunk(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(res5c, skip tap), f32 (bf16 values in the bf16 config)."""
-        y = self._stem(x)
-        if self.int8_residual:
-            return self._trunk_int8_stream(y)
-        return self._trunk(y)
+    def run_trunk(self, x: torch.Tensor, rows=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(res5c, skip tap), f32 (bf16 values in the bf16 config). rows: x
+        is a row block (`parallel.spatial.RowShards`); both taps come back
+        gathered."""
+        y = self._stem(x, rows)
+        trunk = self._trunk_int8_stream if self.int8_residual else self._trunk
+        res5c, skip = trunk(y, rows)
+        if rows is not None:
+            res5c, skip = rows.gather(res5c), rows.gather(skip)
+        return res5c, skip
 
-    def _trunk(self, y: torch.Tensor):
+    def _trunk(self, y: torch.Tensor, rows=None):
         """The block ends stay float; each is quantized once per distinct
         scale of the convs that read it, in the epilogue that writes it
         where it can."""
@@ -314,13 +330,13 @@ class DeeperCutInt8(nn.Module):
             c2a, c2b, c2c = (cv[f"res{block}_branch2{x}"] for x in "abc")
             if bi == 0:
                 c1 = cv[f"res{block}_branch1"]
-                shortcut, _ = c1(q(c1.s_x), stride=bs, bf16=bf)
+                shortcut, _ = c1(q(c1.s_x), stride=bs, bf16=bf, rows=rows)
             else:
                 shortcut = y
             _, z = c2a(q(c2a.s_x), stride=bs, relu=True, bf16=bf, f32_out=False,
-                       requant_s=c2b.s_x)
+                       requant_s=c2b.s_x, rows=rows)
             _, z = c2b(z, pad=d, dilation=d, relu=True, bf16=bf, f32_out=False,
-                       requant_s=c2c.s_x)
+                       requant_s=c2c.s_x, rows=rows)
             nxt = (cv[f"res{blocks[idx + 1][2]}_branch2a"].s_x if idx + 1 < len(blocks)
                    else None)
             y, y_q = c2c(z, residual=shortcut, relu=True, bf16=bf, requant_s=nxt)
@@ -329,7 +345,7 @@ class DeeperCutInt8(nn.Module):
                 skip = y
         return y, skip
 
-    def _trunk_int8_stream(self, y: torch.Tensor):
+    def _trunk_int8_stream(self, y: torch.Tensor, rows=None):
         """``int8_residual``: each block boundary is quantized once, at its
         calibrated ``res{block}#out`` scale, and read as int8 by the next
         block's convs and its identity shortcut."""
@@ -343,13 +359,14 @@ class DeeperCutInt8(nn.Module):
                 bs = cfg.stage_strides[stage] if bi == 0 else 1
                 c2a, c2b, c2c = (cv[f"res{block}_branch2{x}"] for x in "abc")
                 if bi == 0:
-                    res, res_scale = cv[f"res{block}_branch1"](y_q, stride=bs, bf16=bf)[0], None
+                    res, res_scale = cv[f"res{block}_branch1"](y_q, stride=bs, bf16=bf,
+                                                               rows=rows)[0], None
                 else:
                     res, res_scale = y_q, s_y  # y_q * s_y + z, one rounding
                 _, z = c2a(y_q, stride=bs, relu=True, bf16=bf, f32_out=False,
-                           requant_s=c2b.s_x)
+                           requant_s=c2b.s_x, rows=rows)
                 _, z = c2b(z, pad=d, dilation=d, relu=True, bf16=bf, f32_out=False,
-                           requant_s=c2c.s_x)
+                           requant_s=c2c.s_x, rows=rows)
                 s_y = s[f"res{block}#out"]
                 _, y_q = c2c(z, residual=res, residual_scale=res_scale, relu=True, bf16=bf,
                              f32_out=False, requant_s=s_y)
@@ -357,11 +374,13 @@ class DeeperCutInt8(nn.Module):
                     skip = y_q.float() * s_y
         return y_q.float() * s_y, skip
 
-    def fused_heads(self, x: torch.Tensor, heads: Optional[Sequence[str]] = None) -> torch.Tensor:
+    def fused_heads(self, x: torch.Tensor, heads: Optional[Sequence[str]] = None, rows=None
+                    ) -> torch.Tensor:
         """The trunk and the enabled heads (one deconv over res5c, one int8
         1x1 skip conv, summed in f32 after the top-left crop): the unsliced
-        f32 (N, C, h, w) map, as `DeeperCut.fused_heads`."""
-        res5c, skip = self.run_trunk(x)
+        f32 (N, C, h, w) map, as `DeeperCut.fused_heads`; rows as
+        `run_trunk` (the heads run on the gathered grid)."""
+        res5c, skip = self.run_trunk(x, rows)
         names = tuple(n for n, _ in _head_list(self.cfg, heads))
         (sk_packed, sk_scale, sk_bias), up_pack = self._head_pack(names)
         cout = sk_scale.shape[0]
@@ -380,11 +399,11 @@ class DeeperCutInt8(nn.Module):
                                  bf16=False)
         return fused
 
-    def forward(self, x: torch.Tensor, heads: Optional[Sequence[str]] = None
+    def forward(self, x: torch.Tensor, heads: Optional[Sequence[str]] = None, rows=None
                 ) -> Dict[str, torch.Tensor]:
         """{'fc_pose', 'prob' (f32 sigmoid), 'loc_pred', 'next_pred' as
         computed}: f32 contiguous NCHW maps, as `DeeperCut.forward`."""
-        fused = self.fused_heads(x, heads)
+        fused = self.fused_heads(x, heads, rows)
         names = {"pose": "fc_pose", "locref": "loc_pred", "next": "next_pred"}
         outs: Dict[str, torch.Tensor] = {}
         off = 0

@@ -27,6 +27,7 @@ in torchvision), and res5's 3x3 convs use dilation 2 with pad 2.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -236,17 +237,29 @@ def _rounds_once(cfg: DeeperCutConfig, folded: bool) -> bool:
     return folded and cfg.compute_dtype == torch.bfloat16
 
 
+def local_conv(op, x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, **kw
+               ) -> torch.Tensor:
+    """The trunk's default conv hook: the conv `op` over the whole input."""
+    return op(x, w, b, **kw)
+
+
+def local_pool(y: torch.Tensor) -> torch.Tensor:
+    """The trunk's default pool hook: the stem's 3x3/2 ceil-mode max pool."""
+    return max_pool2d(y, kernel=3, stride=2)
+
+
 def _cbr(params: Mapping, x: torch.Tensor, name: str, cfg: DeeperCutConfig, cdt,
          folded: bool, *, stride=1, pad=0, dilation=1, act=True,
-         residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+         residual: Optional[torch.Tensor] = None, conv_fn=local_conv) -> torch.Tensor:
     """conv [+ BN/Scale] [+ residual] [+ ReLU]; a residual only on the
-    `_rounds_once` path, where the epilogue adds it."""
+    `_rounds_once` path, where the epilogue adds it. conv_fn(op, x, w, b,
+    **geometry) runs the conv op (see `run_trunk`)."""
     p = params[name]
     if _rounds_once(cfg, folded):
-        return conv2d_rounded(x, p["w"], p.get("b"), stride=stride, pad=pad, dilation=dilation,
-                              residual=residual, relu=act)
-    y = conv2d(x, p["w"], p["b"] if "b" in p else None, stride=stride,
-               pad=pad, dilation=dilation, compute_dtype=cdt)
+        return conv_fn(conv2d_rounded, x, p["w"], p.get("b"), stride=stride, pad=pad,
+                       dilation=dilation, residual=residual, relu=act)
+    y = conv_fn(conv2d, x, p["w"], p["b"] if "b" in p else None, stride=stride,
+                pad=pad, dilation=dilation, compute_dtype=cdt)
     if not folded:
         key = _bn_key(name, params)
         bn, sc = params[f"bn{key}"], params[f"scale{key}"]
@@ -270,18 +283,28 @@ def _stage_remat(cfg: DeeperCutConfig, stage: int) -> bool:
 
 
 def run_trunk(params: Mapping, x: torch.Tensor, cfg: DeeperCutConfig, *,
-              folded: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+              folded: bool = False, conv_fn=local_conv, pool_fn=local_pool
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """conv1 .. res5c over a mean-subtracted (N, 3, H, W) batch (or a uint8
     one, see `prepare_input`). Returns (res5c, skip tap). Under autodiff a
     block of a ``cfg.remat`` stage is recomputed in the backward pass
-    (`torch.utils.checkpoint`) instead of keeping its activations."""
+    (`torch.utils.checkpoint`) instead of keeping its activations.
+
+    Generic over where the convs and the stem pool run, as the JAX
+    package's: ``conv_fn(op, x, w, b, *, stride, pad, dilation, **kw)``
+    applies the conv `op` (`ops.conv.conv2d`, or `conv2d_rounded` on the
+    serving path) with Caffe's geometry, and ``pool_fn(y)`` is the stem's
+    3x3/2 ceil-mode max pool. The defaults run them on the whole input;
+    the row-sharded paths (`parallel.spatial.RowShards`) fetch halo rows
+    first, so the same block code runs on a block of the image rows."""
     cdt = _compute_dtype(cfg, folded)
     x = prepare_input(x).to(cdt or torch.float32)
     rounded = _rounds_once(cfg, folded)
     if rounded:
         x = x.float()  # bf16 values in f32, the operand the serving convs take
-    y = _cbr(params, x, "conv1", cfg, cdt, folded, stride=2, pad=3)
-    y = max_pool2d(y, kernel=3, stride=2)
+    cbr = functools.partial(_cbr, conv_fn=conv_fn)
+    y = cbr(params, x, "conv1", cfg, cdt, folded, stride=2, pad=3)
+    y = pool_fn(y)
     skip, skip_name = None, _skip_block(cfg)
     for stage in range(4):
         s, d = cfg.stage_strides[stage], cfg.stage_dilations[stage]
@@ -290,16 +313,16 @@ def run_trunk(params: Mapping, x: torch.Tensor, cfg: DeeperCutConfig, *,
 
             def one_block(y, block=block, bs=s if bi == 0 else 1, first=bi == 0, d=d):
                 if first:
-                    shortcut = _cbr(params, y, f"res{block}_branch1", cfg, cdt, folded,
-                                    stride=bs, act=False)
+                    shortcut = cbr(params, y, f"res{block}_branch1", cfg, cdt, folded,
+                                   stride=bs, act=False)
                 else:
                     shortcut = y
-                z = _cbr(params, y, f"res{block}_branch2a", cfg, cdt, folded, stride=bs)
-                z = _cbr(params, z, f"res{block}_branch2b", cfg, cdt, folded, pad=d, dilation=d)
+                z = cbr(params, y, f"res{block}_branch2a", cfg, cdt, folded, stride=bs)
+                z = cbr(params, z, f"res{block}_branch2b", cfg, cdt, folded, pad=d, dilation=d)
                 if rounded:  # relu(shortcut + z) in branch2c's epilogue
-                    return _cbr(params, z, f"res{block}_branch2c", cfg, cdt, folded,
-                                residual=shortcut)
-                z = _cbr(params, z, f"res{block}_branch2c", cfg, cdt, folded, act=False)
+                    return cbr(params, z, f"res{block}_branch2c", cfg, cdt, folded,
+                               residual=shortcut)
+                z = cbr(params, z, f"res{block}_branch2c", cfg, cdt, folded, act=False)
                 return relu(shortcut + z)
 
             y = checkpoint(one_block, y, use_reentrant=False) if remat else one_block(y)
@@ -368,7 +391,8 @@ def compute_heads(params: Mapping, res5c: torch.Tensor, skip: Optional[torch.Ten
 
 
 def forward(params: Mapping, x: torch.Tensor, cfg: DeeperCutConfig = DeeperCutConfig(), *,
-            folded: bool = False, heads: Optional[Sequence[str]] = None) -> Dict[str, torch.Tensor]:
+            folded: bool = False, heads: Optional[Sequence[str]] = None,
+            rows=None) -> Dict[str, torch.Tensor]:
     """The part detector over a Caffe-named param mapping. x: (N, 3, H, W)
     mean-subtracted BGR (or uint8). Returns the `compute_heads` dict; the
     h = ceil(H/8) grid of the reference.
@@ -376,8 +400,17 @@ def forward(params: Mapping, x: torch.Tensor, cfg: DeeperCutConfig = DeeperCutCo
     folded=True takes BN-folded params and computes in ``cfg.compute_dtype``
     (with bf16, rounding once per conv: module docstring). folded=False takes the raw params with BN/Scale entries: f32, or with
     ``cfg.mixed_train`` bf16 convs whose outputs round to bf16 before the
-    bf16 bias add (the JAX package's mixed training)."""
-    res5c, skip = run_trunk(params, x, cfg, folded=folded)
+    bf16 bias add (the JAX package's mixed training).
+
+    rows (`parallel.spatial.RowShards`): x is this rank's block of the image
+    rows; the trunk runs on it with halo hooks and the heads on the
+    gathered taps, every rank of the row group getting the whole maps."""
+    if rows is None:
+        res5c, skip = run_trunk(params, x, cfg, folded=folded)
+    else:
+        res5c, skip = run_trunk(params, x, cfg, folded=folded, conv_fn=rows.conv,
+                                pool_fn=rows.pool)
+        res5c, skip = rows.gather(res5c), rows.gather(skip)
     return compute_heads(params, res5c, skip, cfg, compute_dtype=_compute_dtype(cfg, folded),
                          heads=heads, folded=folded)
 
@@ -449,6 +482,7 @@ class DeeperCut(nn.Module):
                            compute_dtype=_compute_dtype(self.cfg, self.folded), heads=heads,
                            folded=self.folded)
 
-    def forward(self, x: torch.Tensor, heads: Optional[Sequence[str]] = None
+    def forward(self, x: torch.Tensor, heads: Optional[Sequence[str]] = None, rows=None
                 ) -> Dict[str, torch.Tensor]:
-        return forward(self.param_dict(), x, self.cfg, folded=self.folded, heads=heads)
+        return forward(self.param_dict(), x, self.cfg, folded=self.folded, heads=heads,
+                       rows=rows)

@@ -10,8 +10,10 @@ to a matrix product:
 
 - operand A: `int8_im2col` gathers the (N*oh*ow, kh*kw*C) int8 patch matrix
   from an NHWC (channels_last) int8 tensor, zero outside the image, for a
-  square or rectangular kernel with stride, padding, dilation and an input
-  (lhs) dilation; the int8 deconv is
+  square or rectangular kernel with stride, padding (one pad or a
+  (pad_h, pad_w) pair: a row-sharded conv reads its halo rows as they
+  are and pads W alone, ``(0, pad_w)``), dilation and an input (lhs)
+  dilation; the int8 deconv is
   a conv over the input dilated by 2 with the flipped kernel, exactly
   ``_deconv_i8``'s lowering. A 1x1 stride-1 conv takes the int8 tensor as
   it is (rows of C channels);
@@ -78,7 +80,7 @@ def _library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build(LIB)[0]))
             ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-            lib.int8_im2col_launch.argtypes = [ptr, ptr] + [i32] * 15 + [i32, ptr]
+            lib.int8_im2col_launch.argtypes = [ptr, ptr] + [i32] * 16 + [i32, ptr]
             lib.int8_epilogue_launch.argtypes = ([ptr, i32, ptr, ptr, ptr, i32, f32, i64, i64, i64,
                                                   ptr, ptr, f32] + [i32] * 7 + [i32, ptr])
             lib.quantize_i8_launch.argtypes = [ptr, ptr, i64, f32, i32, i32, ptr]
@@ -162,13 +164,20 @@ def quantize_i8_plain(x: torch.Tensor, s) -> torch.Tensor:
     return torch.clamp(torch.round(x.float() * recip_f32(s)), -127, 127).to(torch.int8)
 
 
-def _dilate_pad(x: torch.Tensor, pad: int, lhs_dilation: int) -> torch.Tensor:
+def pad_hw(pad) -> Tuple[int, int]:
+    """One pad or a (pad_h, pad_w) pair -> (pad_h, pad_w)."""
+    return (int(pad[0]), int(pad[1])) if isinstance(pad, (tuple, list)) else (int(pad), int(pad))
+
+
+def _dilate_pad(x: torch.Tensor, pad, lhs_dilation: int) -> torch.Tensor:
     """(N, C, H, W) -> (N, H', W', C) with the input dilated by
-    ``lhs_dilation`` (zeros between pixels) and zero-padded by ``pad``."""
+    ``lhs_dilation`` (zeros between pixels) and zero-padded by ``pad``
+    (one value or (pad_h, pad_w))."""
     n, c, h, w = x.shape
+    ph, pw = pad_hw(pad)
     hd, wd = (h - 1) * lhs_dilation + 1, (w - 1) * lhs_dilation + 1
-    out = torch.zeros((n, hd + 2 * pad, wd + 2 * pad, c), dtype=x.dtype, device=x.device)
-    out[:, pad:pad + hd:lhs_dilation, pad:pad + wd:lhs_dilation] = x.permute(0, 2, 3, 1)
+    out = torch.zeros((n, hd + 2 * ph, wd + 2 * pw, c), dtype=x.dtype, device=x.device)
+    out[:, ph:ph + hd:lhs_dilation, pw:pw + wd:lhs_dilation] = x.permute(0, 2, 3, 1)
     return out
 
 
@@ -182,15 +191,17 @@ def kernel_hw(k: Kernel) -> Tuple[int, int]:
 
 def conv_out_hw(h: int, w: int, k: Kernel, *, stride=1, pad=0, dilation=1, lhs_dilation=1):
     kh, kw = kernel_hw(k)
-    return (((h - 1) * lhs_dilation + 1 + 2 * pad - dilation * (kh - 1) - 1) // stride + 1,
-            ((w - 1) * lhs_dilation + 1 + 2 * pad - dilation * (kw - 1) - 1) // stride + 1)
+    ph, pw = pad_hw(pad)
+    return (((h - 1) * lhs_dilation + 1 + 2 * ph - dilation * (kh - 1) - 1) // stride + 1,
+            ((w - 1) * lhs_dilation + 1 + 2 * pw - dilation * (kw - 1) - 1) // stride + 1)
 
 
 def int8_im2col_plain(x: torch.Tensor, k: Kernel, *, stride=1, pad=0, dilation=1,
                       lhs_dilation=1, min_rows: int = 0, width: int = 0) -> torch.Tensor:
     """(N, C, H, W) int8 -> (max(N*oh*ow, min_rows), max(kh*kw*C, width))
     int8 patch rows, K ordered (kh, kw, C) like the packed weights, zero
-    outside the image and in the padding rows and columns."""
+    outside the image and in the padding rows and columns. pad: one value
+    or (pad_h, pad_w)."""
     n, c, h, w = x.shape
     kh, kw = kernel_hw(k)
     oh, ow = conv_out_hw(h, w, k, stride=stride, pad=pad, dilation=dilation,
@@ -207,11 +218,13 @@ def conv_i8_plain(x_q: torch.Tensor, w_q: torch.Tensor, *, stride=1, pad=0, dila
                   lhs_dilation=1) -> torch.Tensor:
     """Exact int32 accumulator of an int8 conv (OIHW int8 weights), NCHW:
     an f64 convolution of the int8 values (exact, see the module
-    docstring), with the input dilated by ``lhs_dilation`` first."""
+    docstring), with the input dilated by ``lhs_dilation`` first. pad: one
+    value or (pad_h, pad_w)."""
     x = x_q.double()
+    pad = pad_hw(pad)
     if lhs_dilation > 1:
         x = _dilate_pad(x, pad, lhs_dilation).permute(0, 3, 1, 2)
-        pad = 0
+        pad = (0, 0)
     y = F.conv2d(x, w_q.double(), stride=stride, padding=pad, dilation=dilation)
     return y.to(torch.int32)
 
@@ -295,7 +308,7 @@ def int8_im2col(x: torch.Tensor, k: Kernel, *, stride=1, pad=0, dilation=1, lhs_
     """(N, C, H, W) int8, channels_last on the card, and a kernel of k x k
     or (kh, kw) -> (max(N*oh*ow, min_rows), max(kh*kw*C, width)) int8 patch
     rows; the rows past N*oh*ow and the columns past kh*kw*C are zero (the
-    GEMM's padding)."""
+    GEMM's padding). pad: one value or (pad_h, pad_w)."""
     if not _device_check(x, "int8_im2col"):
         return int8_im2col_plain(x, k, stride=stride, pad=pad, dilation=dilation,
                                  lhs_dilation=lhs_dilation, min_rows=min_rows, width=width)
@@ -304,6 +317,7 @@ def int8_im2col(x: torch.Tensor, k: Kernel, *, stride=1, pad=0, dilation=1, lhs_
                          f"{tuple(x.shape)} strides {x.stride()}")
     n, c, h, w = x.shape
     kh, kw = kernel_hw(k)
+    ph, pw = pad = pad_hw(pad)
     oh, ow = conv_out_hw(h, w, k, stride=stride, pad=pad, dilation=dilation,
                          lhs_dilation=lhs_dilation)
     rows = n * oh * ow
@@ -320,7 +334,7 @@ def int8_im2col(x: torch.Tensor, k: Kernel, *, stride=1, pad=0, dilation=1, lhs_
     vec = next(v for v in (16, 4, 1) if c % v == 0 and shape[1] % v == 0
                and x.data_ptr() % v == 0 and out.data_ptr() % v == 0)
     _raise_on(_library().int8_im2col_launch(
-        x.data_ptr(), out.data_ptr(), n, h, w, c, kh, kw, stride, pad, dilation, lhs_dilation,
+        x.data_ptr(), out.data_ptr(), n, h, w, c, kh, kw, stride, ph, pw, dilation, lhs_dilation,
         oh, ow, rows, shape[1], vec, x.device.index, _stream(x)), "int8_im2col")
     _count("im2col_launches", (view_geometry(x), (kh, kw), stride, pad, dilation, lhs_dilation,
                                min_rows, width))
@@ -333,12 +347,13 @@ def conv_i8(x_q: torch.Tensor, packed: torch.Tensor, cout: int, k: Kernel, *, st
     (N, cout, oh, ow), channels_last (a view of the product's padded
     (N*oh*ow, Cpad) rows). A (`int8_im2col`, or the input itself for a 1x1
     stride-1 conv), then ``torch._int_mm(A, packed.t())``: on the card
-    cuBLASLt's int8 GEMM, on the CPU an exact int32 product."""
+    cuBLASLt's int8 GEMM, on the CPU an exact int32 product. pad: one value
+    or (pad_h, pad_w)."""
     n, _, h, w = x_q.shape
     oh, ow = conv_out_hw(h, w, k, stride=stride, pad=pad, dilation=dilation,
                          lhs_dilation=lhs_dilation)
     rows = n * oh * ow
-    if (kernel_hw(k) == (1, 1) and stride == 1 and pad == 0 and lhs_dilation == 1
+    if (kernel_hw(k) == (1, 1) and stride == 1 and pad_hw(pad) == (0, 0) and lhs_dilation == 1
             and rows >= MIN_ROWS
             and packed.shape[1] == x_q.shape[1]):
         a = x_q.permute(0, 2, 3, 1).reshape(rows, -1)

@@ -20,11 +20,12 @@ Hinge, Contrastive, Infogain, MultinomialLogistic) and `accuracy` follow
 the JAX package's single-device forms, whose gradients are autodiff's:
 here autograd's.
 
-Data parallelism (`sharded_losses(mesh)`, the counterpart of the JAX
+Data parallelism (`sharded_losses(axis)`, the counterpart of the JAX
 package's psum'ed variants): each rank holds its rows of the global batch,
 and every normaliser that depends on the batch (the ``/ N`` of each loss,
 the VALID / BATCH_SIZE / FULL counts, the weight sums, Accuracy's counts)
-and every loss sum is all-reduced over the mesh's process group, so each
+and every loss sum is all-reduced over the mesh's 'data' axis (under a
+spatial axis the ranks of one data row compute the same heads), so each
 rank reports the global loss and its gradients are its share of the
 global gradient (their SUM over the ranks is the single-device gradient).
 The all-reduces run in the forward of an autograd Function and never in
@@ -39,34 +40,37 @@ from typing import Optional
 
 import torch
 
+from deepcut_tpu_torch.ops.shard_rng import as_axis
+
 IGNORE_VALUE = 1000.0  # softmax_loss_vec_layer.cpp:12
 FLT_MIN = 1.175494e-38  # the reference's log clamp
 
-# the mesh whose 'data' axis the batch is sharded over (`sharded_losses`)
-_MESH = None
+# the axis the batch is sharded over (`sharded_losses`)
+_AXIS = None
 
 
 class sharded_losses:
-    """Context: ``with sharded_losses(mesh): ...`` makes every loss and
-    Accuracy here reduce its sums and normalisers over the mesh's process
-    group (`parallel.mesh.Mesh`); ``sharded_losses(None)`` is a no-op."""
+    """Context: ``with sharded_losses(axis): ...`` makes every loss and
+    Accuracy here reduce its sums and normalisers over the axis
+    (`parallel.mesh.Axis`; a `parallel.mesh.Mesh` stands for its 'data'
+    axis); ``sharded_losses(None)`` is a no-op."""
 
-    def __init__(self, mesh):
-        self.mesh = mesh
+    def __init__(self, axis):
+        self.axis = as_axis(axis)
 
     def __enter__(self):
-        global _MESH
-        self._prev, _MESH = _MESH, self.mesh
+        global _AXIS
+        self._prev, _AXIS = _AXIS, self.axis
         return self
 
     def __exit__(self, *exc):
-        global _MESH
-        _MESH = self._prev
+        global _AXIS
+        _AXIS = self._prev
         return False
 
 
 class _GlobalSums(torch.autograd.Function):
-    """Stacked partial sums -> their sums over the mesh, all-reduced in the
+    """Stacked partial sums -> their sums over the axis, all-reduced in the
     forward; the backward hands each rank's partial sum the cotangent
     unchanged (the counterpart of a psum inside the JAX package's
     custom_vjp)."""
@@ -81,10 +85,10 @@ class _GlobalSums(torch.autograd.Function):
 
 
 def _global_sums(*parts: torch.Tensor, mesh=None):
-    """Each 0-dim partial sum summed over `mesh` (default: the mesh of
-    `sharded_losses`) in one f32 all-reduce, back in its own dtype;
-    unchanged without a mesh."""
-    mesh = mesh if mesh is not None else _MESH
+    """Each 0-dim partial sum summed over `mesh` (an axis; default: the axis
+    of `sharded_losses`) in one f32 all-reduce, back in its own dtype;
+    unchanged without one."""
+    mesh = mesh if mesh is not None else _AXIS
     if mesh is None:
         return parts
     stacked = _GlobalSums.apply(torch.stack([p.float() for p in parts]), mesh)
@@ -93,7 +97,7 @@ def _global_sums(*parts: torch.Tensor, mesh=None):
 
 def _batch(n: int) -> float:
     """A local batch size -> the global one (every rank holds as many rows)."""
-    return float(n * (_MESH.data if _MESH is not None else 1))
+    return float(n * (_AXIS.size if _AXIS is not None else 1))
 
 
 def _smooth_l1(d: torch.Tensor) -> torch.Tensor:
@@ -134,7 +138,7 @@ def smooth_l1_loss(pred: torch.Tensor, target: torch.Tensor,
 
     forward: d = w*(pred-target); loss = sum f(d) / sum(|w|)  (0 if sum w == 0)
     backward: dpred = f'(d) / max(sum w, 100)   — no second w factor."""
-    return _SmoothL1.apply(pred, target, weights, _MESH)
+    return _SmoothL1.apply(pred, target, weights, _AXIS)
 
 
 def _sigmoid_ce_elem(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -149,7 +153,7 @@ class _SoftmaxLossVec(torch.autograd.Function):
     def forward(ctx, scores, labels, weights, cross_entropy, no_softmax, normalize, mesh):
         x = scores.float()
         t = labels.float()
-        n = float(x.shape[0] * (mesh.data if mesh is not None else 1))
+        n = float(x.shape[0] * (mesh.size if mesh is not None else 1))
         if cross_entropy:
             live = t != IGNORE_VALUE
             w = weights if weights is not None else torch.ones_like(x)
@@ -203,7 +207,7 @@ def softmax_loss_vec(scores: torch.Tensor, labels: torch.Tensor,
     Forward normaliser: max(count, 100) if normalize else N;
     backward normaliser: max(channel-0 weight sum or count, 100)."""
     return _SoftmaxLossVec.apply(scores, labels, weights, cross_entropy, no_softmax, normalize,
-                                 _MESH)
+                                 _AXIS)
 
 
 # -- upstream Caffe's losses (autograd backward, as the JAX package's) ---------
@@ -232,7 +236,7 @@ def softmax_with_loss(scores: torch.Tensor, labels: torch.Tensor, *,
     picked = _nan_if((live & ((lab < 0) | (lab >= c))).any(), picked)
     loss_sum = -torch.where(live, picked, torch.zeros_like(picked)).sum()
     valid = live.sum().float()
-    if _MESH is not None:
+    if _AXIS is not None:
         loss_sum, valid = _global_sums(loss_sum, valid)
     if normalization == "VALID":
         denom = torch.clamp(valid, min=1.0)
@@ -328,6 +332,6 @@ def accuracy(scores: torch.Tensor, labels: torch.Tensor, *, top_k: int = 1,
     onehot = torch.nn.functional.one_hot(flat.clamp(0, c - 1), c).float() * livef
     counts = onehot.sum(dim=0)
     correct = (onehot * hit.reshape(-1, 1).float()).sum(dim=0)
-    if _MESH is not None:
-        counts, correct = _MESH.all_reduce_(torch.stack([counts, correct])).unbind(0)
+    if _AXIS is not None:
+        counts, correct = _AXIS.all_reduce_(torch.stack([counts, correct])).unbind(0)
     return total, torch.where(counts == 0, 0.0, correct / torch.clamp(counts, min=1.0))

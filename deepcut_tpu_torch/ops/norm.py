@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from deepcut_tpu_torch.ops.activations import per_channel
+from deepcut_tpu_torch.ops.shard_rng import as_axis
 
 
 def scaled_stats(mean: torch.Tensor, var: torch.Tensor,
@@ -43,32 +44,35 @@ def batch_norm_inference(
     return out.to(x.dtype)
 
 
-# the mesh whose 'data' axis the batch is sharded over (`sharded_bn_stats`)
-_MESH = None
+# the axis the batch is sharded over (`sharded_bn_stats`)
+_AXIS = None
 
 
 class sharded_bn_stats:
-    """Context: ``with sharded_bn_stats(mesh): ...`` makes `batch_norm_train`
-    normalise with the GLOBAL batch's moments, all-reduced over the mesh's
-    process group, and move the statistics by them (the counterpart of the
-    JAX package's psum'ed moments); ``sharded_bn_stats(None)`` is a no-op."""
+    """Context: ``with sharded_bn_stats(axis): ...`` makes `batch_norm_train`
+    normalise with the GLOBAL batch's moments, all-reduced over the axis
+    (`parallel.mesh.Axis`; a `parallel.mesh.Mesh` stands for its 'data'
+    axis), and move the statistics by them (the counterpart of the JAX
+    package's psum'ed moments). Row shards of the global batch take the
+    mesh's `world_axis`: every rank holds a distinct part of each channel's
+    elements. ``sharded_bn_stats(None)`` is a no-op."""
 
-    def __init__(self, mesh):
-        self.mesh = mesh
+    def __init__(self, axis):
+        self.axis = as_axis(axis)
 
     def __enter__(self):
-        global _MESH
-        self._prev, _MESH = _MESH, self.mesh
+        global _AXIS
+        self._prev, _AXIS = _AXIS, self.axis
         return self
 
     def __exit__(self, *exc):
-        global _MESH
-        _MESH = self._prev
+        global _AXIS
+        _AXIS = self._prev
         return False
 
 
 class _ShardedBatchNorm(torch.autograd.Function):
-    """(x f32, mesh, eps) -> (y, global mean, global biased variance).
+    """(x f32, axis, eps) -> (y, global mean, global biased variance).
 
     The forward all-reduces the per-channel sums for the mean, then the
     centred squares for the variance, over the global batch of ``count``
@@ -81,7 +85,7 @@ class _ShardedBatchNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xf, mesh, eps):
         axes = [d for d in range(xf.dim()) if d != 1]
-        cnt = float(xf.numel() // xf.shape[1] * mesh.data)
+        cnt = float(xf.numel() // xf.shape[1] * mesh.size)
         mu = mesh.all_reduce_(xf.sum(dim=axes)) / cnt
         c = xf - per_channel(mu, xf)
         var = mesh.all_reduce_((c * c).sum(dim=axes)) / cnt
@@ -117,12 +121,12 @@ def batch_norm_train(x: torch.Tensor, stats: BNStats, *, eps: float = 1e-5,
     ``mean*momentum + batch_mean``, ``var*momentum + m/(m-1)*batch_var``
     (m = elements per channel) and ``scale_factor*momentum + 1``, computed
     without gradient: the statistics are not learned. Returns (y, stats)
-    instead of mutating the blobs. Inside `sharded_bn_stats(mesh)` the
+    instead of mutating the blobs. Inside `sharded_bn_stats(axis)` the
     moments (and m) are the global batch's (`_ShardedBatchNorm`)."""
     xf = x.float()
-    if _MESH is not None:
-        y, batch_mean, batch_var = _ShardedBatchNorm.apply(xf, _MESH, eps)
-        m = x.numel() // x.shape[1] * _MESH.data
+    if _AXIS is not None:
+        y, batch_mean, batch_var = _ShardedBatchNorm.apply(xf, _AXIS, eps)
+        m = x.numel() // x.shape[1] * _AXIS.size
         with torch.no_grad():
             new = BNStats(mean=momentum * stats.mean + batch_mean,
                           var=momentum * stats.var + (m / max(m - 1, 1)) * batch_var,

@@ -11,6 +11,12 @@ iteration, the micro-batch and the layer, as on one device) and keeps the
 rank's rows: the masks equal the single-device masks bit for bit, so the
 trajectories stay equal. The cost: each rank draws the whole batch's
 random tensor (the activations stay local).
+
+The contexts of this module, `ops.losses` and `ops.norm` take an axis of
+the mesh (`parallel.mesh.Axis`: ``all_reduce_``, ``size``, ``index``); a
+whole `parallel.mesh.Mesh` stands for its 'data' axis (`as_axis`). Under a
+spatial axis the draws key by the DATA index: the ranks of one data row
+hold the same batch rows and draw the same masks.
 """
 
 from __future__ import annotations
@@ -19,15 +25,21 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-_CTX: Optional[Tuple[int, int]] = None   # (rank along 'data', data size)
+_CTX: Optional[Tuple[int, int]] = None   # (index along 'data', data size)
+
+
+def as_axis(axis):
+    """An axis as given, a mesh as its 'data' axis, None as None."""
+    return getattr(axis, "data_axis", axis)
 
 
 class sharded_rng_batch:
-    """Context: the batch dim of stochastic draws is sharded over the mesh's
-    'data' axis (`parallel.mesh.Mesh`: its ``rank`` and ``data``)."""
+    """Context: the batch dim of stochastic draws is sharded over an axis
+    (its ``index`` and ``size``; a mesh: its 'data' axis)."""
 
-    def __init__(self, mesh):
-        self.value = None if mesh is None else (int(mesh.rank), int(mesh.data))
+    def __init__(self, axis):
+        axis = as_axis(axis)
+        self.value = None if axis is None else (int(axis.index), int(axis.size))
 
     def __enter__(self):
         global _CTX

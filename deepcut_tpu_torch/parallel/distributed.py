@@ -1,4 +1,4 @@
-"""The process group of a data-parallel job: one process per GPU.
+"""The process group of a multi-GPU job: one process per GPU.
 
 Counterpart of `deepcut_tpu.parallel.distributed`. The JAX package runs
 one process per host over a device mesh (`jax.distributed`); the PyTorch
@@ -8,6 +8,7 @@ Call `initialize()` in every process, then build the mesh
 (`global_mesh()` or `parallel.mesh.make_mesh`)::
 
     torchrun --nproc_per_node 4 -m deepcut_tpu_torch.tools.cli train -solver S -mesh 4
+    torchrun --nproc_per_node 4 -m deepcut_tpu_torch.tools.cli train -solver S -mesh 4 -spatial 2
 
 A group that cannot form raises: nothing falls back to one process.
 """
@@ -68,7 +69,8 @@ def device() -> Optional[torch.device]:
 
 
 def global_mesh(*, spatial: int = 1):
-    """The ('data', 'spatial') mesh over every process of the job."""
+    """The ('data', 'spatial') mesh over every process of the job: world /
+    spatial data rows of `spatial` row shards each."""
     from deepcut_tpu_torch.parallel.mesh import make_mesh
 
     return make_mesh(spatial=spatial)

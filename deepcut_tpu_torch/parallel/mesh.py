@@ -1,26 +1,31 @@
-"""Data-parallel meshes over a `torch.distributed` process group.
+"""Meshes over a `torch.distributed` process group: the ('data', 'spatial') axes.
 
-Counterpart of `deepcut_tpu.parallel.mesh` for its 'data' axis. The JAX
-package shards one program over a ('data', 'spatial') device mesh in one
-process; here each process drives one GPU (`parallel.distributed`):
+Counterpart of `deepcut_tpu.parallel.mesh`. The JAX package shards one
+program over a ('data', 'spatial') device mesh in one process; here each
+process drives one GPU (`parallel.distributed`) and the mesh lays the
+ranks out as the JAX package's ``reshape(data, spatial)`` does: rank
+``d * spatial + s`` holds data row d and row shard s. Each axis is a
+process sub-group (`Axis`): the ranks of one data row form its 'spatial'
+axis and the ranks of one spatial index its 'data' axis.
 
 - parameters and solver state are replicated: broadcast from rank 0 once
   (`replicated`), then every rank applies the same update;
-- each rank computes its rows of the global batch (`shard_batch`);
-- the gradients are all-reduced with SUM, coalesced into a few flat
-  buckets (`all_reduce_sum`), before the Caffe update;
+- each rank computes its rows of the global batch, and with a spatial
+  axis its block of the image rows (`shard_batch`);
+- the gradients are all-reduced with SUM over the whole mesh, coalesced
+  into a few flat buckets (`all_reduce_sum`), before the Caffe update;
 - inside `data_parallel(mesh)` the losses divide by GLOBAL normalisers
   (`ops.losses.sharded_losses`), BatchNorm in TRAIN normalises with the
   global batch's moments (`ops.norm.sharded_bn_stats`), and Dropout,
   STOCHASTIC pooling and random DummyData draw the global batch and keep
-  the rank's rows (`ops.shard_rng`).
+  the rank's rows (`ops.shard_rng`), each over the 'data' axis.
 
 So a step equals one device's step on the global batch. Plain DDP
 averaging would equal it only where every rank's normaliser is the same,
 which VALID counts with ignore_label, smooth-L1 weight sums and BatchNorm
-moments are not. Row-sharded ('spatial') training is the spatial slice
-of the port (`parallel/spatial.py`), not ported yet: ``spatial > 1``
-raises.
+moments are not. Row-sharded training and serving (halo exchange, the
+gather before the heads) are `parallel.spatial` and
+`parallel.graph_spatial`.
 """
 
 from __future__ import annotations
@@ -37,23 +42,73 @@ from deepcut_tpu_torch.ops.norm import sharded_bn_stats
 from deepcut_tpu_torch.ops.shard_rng import sharded_rng_batch
 from deepcut_tpu_torch.parallel import distributed
 
-SPATIAL_MESSAGE = ("spatial > 1 (image rows sharded over a 'spatial' axis: halo exchange, "
-                   "parallel/spatial.py and parallel/graph_spatial.py) belongs to the spatial "
-                   "slice of the port, which is not ported yet (data-parallel meshes take "
-                   "spatial=1)")
 BUCKET_BYTES = 64 << 20   # the gradient all-reduce's flat buckets
+SPATIAL_KEYS = ("image", "aug_canvas")   # the batch entries whose rows shard over 'spatial'
+
+
+@dataclasses.dataclass(frozen=True)
+class Axis:
+    """One axis of a mesh: the `size` ranks of a process group (None: the
+    whole job), this one at `index` along it."""
+
+    group: Any
+    size: int
+    index: int
+
+    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
+        """SUM over the axis, in place; returns `t`."""
+        if self.size > 1:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+        return t
+
+    def all_gather(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """Every rank's `t` (one shape on all), in axis order."""
+        if self.size == 1:
+            return [t]
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t.contiguous(), group=self.group)
+        return parts
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A ('data', 'spatial') mesh over a process group: this process is
-    rank `rank` of `data` along the 'data' axis, on `device`."""
+    rank `rank` = data_index * spatial + spatial_index, on `device`.
+    data_group / spatial_group: the sub-groups of its 'data' and 'spatial'
+    axes (`make_mesh` makes them; None where the axis is the whole job)."""
 
     group: Any            # torch.distributed ProcessGroup (None: the default group)
     rank: int
     data: int
     spatial: int
     device: torch.device
+    data_group: Any = None
+    spatial_group: Any = None
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.spatial
+
+    @property
+    def spatial_index(self) -> int:
+        return self.rank % self.spatial
+
+    @property
+    def data_axis(self) -> Axis:
+        """The ranks of this rank's spatial index: one per data row."""
+        return Axis(self.group if self.spatial == 1 else self.data_group, self.data,
+                    self.data_index)
+
+    @property
+    def spatial_axis(self) -> Axis:
+        """The ranks of this rank's data row: one per row shard."""
+        return Axis(self.group if self.data == 1 else self.spatial_group, self.spatial,
+                    self.spatial_index)
+
+    @property
+    def world_axis(self) -> Axis:
+        """Both axes: every rank of the mesh."""
+        return Axis(self.group, self.data * self.spatial, self.rank)
 
     def is_coordinator(self) -> bool:
         return self.rank == 0
@@ -70,11 +125,11 @@ class Mesh:
 def make_mesh(n_devices: Optional[int] = None, *, data: Optional[int] = None,
               spatial: int = 1, device: Union[str, torch.device, None] = None) -> Mesh:
     """The mesh over the job's process group (`distributed.initialize`
-    first). n_devices must equal the world size; data defaults to it.
+    first), laid out as the JAX package's ``reshape(data, spatial)``.
+    n_devices must equal the world size; data defaults to it over
+    `spatial`. Every rank makes the axes' sub-groups, in the same order.
     device: the one `initialize` bound this process to, else
     ``cuda:<current>`` under NCCL, else ``"cuda"``."""
-    if spatial != 1:
-        raise NotImplementedError(SPATIAL_MESSAGE)
     if not dist.is_initialized():
         raise RuntimeError(
             "make_mesh: no process group. Start one process per GPU (torchrun "
@@ -86,7 +141,10 @@ def make_mesh(n_devices: Optional[int] = None, *, data: Optional[int] = None,
             f"make_mesh: {n_devices} devices requested but the process group has {world} "
             f"ranks. Launch one process per device (torchrun --nproc_per_node {n_devices} "
             f"...), or on the CPU a gloo group of {n_devices} processes")
-    data = world if data is None else int(data)
+    spatial = int(spatial)
+    if spatial < 1 or world % spatial:
+        raise ValueError(f"make_mesh: {world} ranks not divisible by spatial={spatial}")
+    data = world // spatial if data is None else int(data)
     if data * spatial != world:
         raise ValueError(f"make_mesh: data={data} x spatial={spatial} != {world} ranks")
     if device is None:
@@ -94,30 +152,46 @@ def make_mesh(n_devices: Optional[int] = None, *, data: Optional[int] = None,
     if device is None:
         device = (f"cuda:{torch.cuda.current_device()}" if dist.get_backend() == "nccl"
                   else "cuda")
-    return Mesh(group=None, rank=dist.get_rank(), data=data, spatial=spatial,
-                device=torch.device(device))
+    rank = dist.get_rank()
+    # the sub-groups: every data row's 'spatial' axis, then every spatial
+    # index's 'data' axis (new_group is collective: all ranks, one order)
+    spatial_group = data_group = None
+    if spatial > 1 and data > 1:
+        rows = [dist.new_group(list(range(d * spatial, (d + 1) * spatial))) for d in range(data)]
+        cols = [dist.new_group(list(range(s, world, spatial))) for s in range(spatial)]
+        spatial_group, data_group = rows[rank // spatial], cols[rank % spatial]
+    return Mesh(group=None, rank=rank, data=data, spatial=spatial,
+                device=torch.device(device), data_group=data_group,
+                spatial_group=spatial_group)
 
 
-def check_data_mesh(mesh: Optional[Mesh]) -> None:
-    """A mesh a data-parallel path takes: None or spatial == 1 (a spatial
-    axis raises: the spatial slice of the port)."""
-    if mesh is not None and mesh.spatial != 1:
-        raise NotImplementedError(SPATIAL_MESSAGE)
+def _block(v, axis: int, parts: int, index: int, key: str, ranks: str):
+    n = v.shape[axis]
+    if n % parts:
+        raise ValueError(f"shard_batch: '{key}' has {n} rows along axis {axis}, "
+                         f"not divisible by the {parts} {ranks}")
+    rows = n // parts
+    sl = [slice(None)] * v.ndim
+    sl[axis] = slice(index * rows, (index + 1) * rows)
+    return v[tuple(sl)]
 
 
-def shard_batch(mesh: Mesh, batch: Mapping[str, Any], axis: int = 0) -> Dict[str, Any]:
-    """This rank's rows of every entry (numpy or tensor) along `axis` (1
-    behind an iter_size axis). A batch that does not split evenly raises."""
+def shard_batch(mesh: Mesh, batch: Mapping[str, Any], axis: int = 0,
+                rows: Optional[Mapping[str, int]] = None) -> Dict[str, Any]:
+    """This rank's share of every entry (numpy or tensor): its data row's
+    block along `axis` (1 behind an iter_size axis) and, for the entries of
+    `rows` ({key: row axis}; by default `SPATIAL_KEYS` at axis + 1, the
+    NHWC canvas), its block of rows over the 'spatial' axis. Everything
+    else (targets, annotations, raw images, warp coefficients) is sharded
+    over 'data' only. A batch that does not split evenly raises."""
+    if rows is None:
+        rows = {k: axis + 1 for k in SPATIAL_KEYS} if mesh.spatial > 1 else {}
     out = {}
     for k, v in batch.items():
-        n = v.shape[axis]
-        if n % mesh.data:
-            raise ValueError(f"shard_batch: '{k}' has {n} rows along axis {axis}, "
-                             f"not divisible by the {mesh.data} data-parallel ranks")
-        rows = n // mesh.data
-        index = [slice(None)] * v.ndim
-        index[axis] = slice(mesh.rank * rows, (mesh.rank + 1) * rows)
-        out[k] = v[tuple(index)]
+        v = _block(v, axis, mesh.data, mesh.data_index, k, "data-parallel ranks")
+        if k in rows and mesh.spatial > 1:
+            v = _block(v, rows[k], mesh.spatial, mesh.spatial_index, k, "row shards")
+        out[k] = v
     return out
 
 
@@ -166,9 +240,12 @@ def tree_leaves(tree: Mapping[str, Mapping[str, torch.Tensor]]) -> List[torch.Te
 @contextlib.contextmanager
 def data_parallel(mesh: Optional[Mesh]):
     """Global-batch semantics for what runs inside: the losses' and
-    Accuracy's normalisers, BatchNorm's moments and the stochastic draws
-    (a no-op for ``mesh=None``)."""
-    with sharded_losses(mesh), sharded_bn_stats(mesh), sharded_rng_batch(mesh):
+    Accuracy's normalisers, BatchNorm's moments and the stochastic draws,
+    each over the mesh's 'data' axis (a no-op for ``mesh=None``). Under a
+    spatial axis this is the replicated part after the gather: within a
+    data row every rank computes the same rows."""
+    axis = None if mesh is None else mesh.data_axis
+    with sharded_losses(axis), sharded_bn_stats(axis), sharded_rng_batch(axis):
         yield
 
 
@@ -180,8 +257,6 @@ def broadcast_int(mesh: Mesh, value: int) -> int:
 
 
 def gather_rows(mesh: Mesh, t: torch.Tensor) -> torch.Tensor:
-    """Every rank's rows concatenated in rank order (the global batch)."""
-    parts = [torch.empty_like(t) for _ in range(mesh.data)]
-    dist.all_gather(parts, t.contiguous(), group=mesh.group)
-    return torch.cat(parts)
+    """Every data row's batch rows concatenated in order (the global batch)."""
+    return torch.cat(mesh.data_axis.all_gather(t))
 

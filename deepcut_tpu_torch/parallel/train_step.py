@@ -8,9 +8,10 @@ targets, forward, the fork's losses, backward, the Caffe update rule.
 With a data-parallel `parallel.mesh.Mesh` each rank takes its rows of the
 global batch, its losses divide by the global normalisers, and the
 gradients are summed over the ranks in flat buckets before the update, so
-the step equals one device's on the global batch. A mesh with a spatial
-axis raises (`parallel.mesh.make_mesh`): row sharding is the spatial
-slice of the port.
+the step equals one device's on the global batch. With a spatial axis
+the same step runs over row blocks (`batch_preparer` checks the canvas
+and warps the rank's rows, `GradStep` runs the row-sharded forward and
+divides the summed gradients by the spatial size).
 
 A host batch (`data.pipeline.PoseDataSource`, NHWC numpy)
 crosses to the device once, from pinned memory without blocking the host,
@@ -28,7 +29,9 @@ import torch
 from deepcut_tpu_torch.models.resnet import DeeperCutConfig, forward, is_trainable
 from deepcut_tpu_torch.models.train import bn_frozen_mults, loss_fn
 from deepcut_tpu_torch.parallel.mesh import (
-    all_reduce_sum, check_data_mesh, data_parallel, gather_rows, shard_batch)
+    all_reduce_sum, data_parallel, gather_rows, shard_batch)
+from deepcut_tpu_torch.parallel.spatial import check_batch, spatial_axis_size, spatial_pose_loss
+from deepcut_tpu_torch.pose import targets as T
 from deepcut_tpu_torch.pose.augment_device import warp_batch
 from deepcut_tpu_torch.pose.targets_device import make_batch_rasterizer
 from deepcut_tpu_torch.solver import update_rules
@@ -54,16 +57,31 @@ def to_device(batch: Mapping[str, Any], device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def batch_preparer(device, target_cfg=None, target_stats=None
+def batch_preparer(device, target_cfg=None, target_stats=None, *, mesh=None
                    ) -> Callable[[Mapping[str, Any]], Dict[str, torch.Tensor]]:
-    """Host batch -> the loss's device batch: transfer, then the device warp
-    of an ``image_raw`` batch, then (with `target_cfg`) the rasterization
-    of ``anno_*`` annotations into dense NCHW maps."""
-    rast = None if target_cfg is None else make_batch_rasterizer(target_cfg, target_stats)
+    """Host batch -> the loss's device batch: with a mesh this rank's share
+    of the GLOBAL batch (`parallel.mesh.shard_batch`; a spatial mesh first
+    holds the canvas to `parallel.spatial.check_batch`), the transfer, the
+    device warp of an ``image_raw`` batch (with a spatial axis only this
+    rank's block of the canvas rows: `warp_batch_local`), then (with
+    `target_cfg`) the rasterization of ``anno_*`` annotations into dense
+    NCHW maps on the GLOBAL stride-8 grid."""
+    nsp = spatial_axis_size(mesh)
+    block = 0 if mesh is None else mesh.spatial_index
 
     def prepare(batch):
-        batch = warp_batch(to_device(batch, device))
-        return rast(batch) if rast is not None else batch
+        if mesh is not None:
+            if nsp > 1:
+                check_batch(batch, mesh)
+            batch = shard_batch(mesh, batch)
+        batch = to_device(batch, device)
+        if "aug_canvas" in batch:
+            batch = warp_batch(batch, y0=block * int(batch["aug_canvas"].shape[1]))
+        if target_cfg is None:
+            return batch
+        img = batch["image"]
+        grid = (img.shape[2] * nsp // T.STRIDE, img.shape[3] // T.STRIDE)
+        return make_batch_rasterizer(target_cfg, target_stats, grid=grid)(batch)
 
     return prepare
 
@@ -81,11 +99,17 @@ class GradStep:
     With a mesh, `backward` runs on the rank's rows under global-batch
     semantics (`parallel.mesh.data_parallel`: the losses and metrics are
     the global batch's) and `update` first sums the accumulated gradients
-    over the ranks (`parallel.mesh.all_reduce_sum`)."""
+    over the ranks (`parallel.mesh.all_reduce_sum`). With a spatial axis
+    the forward is the row-sharded one (`parallel.spatial.spatial_pose_loss`)
+    and the summed gradients are divided by the spatial size, which the
+    gather and the replicated heads count S times each."""
 
     def __init__(self, model_cfg: DeeperCutConfig, solver_cfg: update_rules.SolverConfig, *,
                  lr_mults=None, decay_mults=None, mesh=None):
-        check_data_mesh(mesh)
+        self.nsp = spatial_axis_size(mesh)
+        self.loss = loss_fn
+        if self.nsp > 1:
+            self.loss = lambda p, b, c: spatial_pose_loss(p, b, c, mesh)
         self.model_cfg = model_cfg
         self.solver_cfg = solver_cfg
         self.lr_mults = lr_mults
@@ -96,14 +120,18 @@ class GradStep:
     def backward(self, params, batch):
         """-> (total loss, metrics), detached; the gradients land in ``.grad``."""
         with torch.enable_grad(), data_parallel(self.mesh):
-            total, metrics = loss_fn(params, batch, self.model_cfg)
+            total, metrics = self.loss(params, batch, self.model_cfg)
             total.backward()
         return total.detach(), {k: v.detach() for k, v in metrics.items()}
 
-    def update(self, params, state):
+    def reduced_grads(self, params):
+        """The accumulated gradients summed over the mesh (divided by the
+        spatial size), {layer: {key: tensor}}, zeros where none arrived."""
         if self.mesh is not None:
-            all_reduce_sum(self.mesh, [v.grad for e in params.values() for v in e.values()
-                                       if v.grad is not None])
+            got = [v.grad for e in params.values() for v in e.values() if v.grad is not None]
+            all_reduce_sum(self.mesh, got)
+            if self.nsp > 1:
+                torch._foreach_div_(got, float(self.nsp))
         grads = {}
         for name, entry in params.items():
             grads[name] = {}
@@ -111,6 +139,10 @@ class GradStep:
                 if v.grad is None and (name, k) not in self._zeros:
                     self._zeros[name, k] = torch.zeros_like(v)
                 grads[name][k] = self._zeros[name, k] if v.grad is None else v.grad
+        return grads
+
+    def update(self, params, state):
+        grads = self.reduced_grads(params)
         params, state = update_rules.step(self.solver_cfg, params, grads, state,
                                           lr_mults=self.lr_mults, decay_mults=self.decay_mults)
         for entry in params.values():
@@ -128,10 +160,10 @@ def make_train_step(model_cfg: DeeperCutConfig, solver_cfg: update_rules.SolverC
     params' device. The params and state are updated in place (the JAX step
     donates their buffers); the trainable leaves are made to require grad.
     The BatchNorm statistics are frozen (`models.train.bn_frozen_mults`).
-    With a data-parallel mesh every rank passes the GLOBAL host batch and
-    the same params (`parallel.mesh.replicated`); each keeps its rows and
-    the metrics are the global batch's."""
-    check_data_mesh(mesh)
+    With a mesh every rank passes the GLOBAL host batch and the same params
+    (`parallel.mesh.replicated`); each keeps its rows, with a spatial axis
+    its block of the image rows too (the canvas held to `parallel.spatial.
+    check_spatial_shapes`), and the metrics are the global batch's."""
     if solver_cfg.iter_size > 1:
         raise ValueError("make_train_step takes one batch per call and does not accumulate; "
                          "use PoseSolver for iter_size > 1")
@@ -142,12 +174,10 @@ def make_train_step(model_cfg: DeeperCutConfig, solver_cfg: update_rules.SolverC
         dev = next(iter(next(iter(params.values())).values())).device
         if dev not in per_device:
             mults = bn_frozen_mults(params)
-            per_device[dev] = (batch_preparer(dev, target_cfg, target_stats),
+            per_device[dev] = (batch_preparer(dev, target_cfg, target_stats, mesh=mesh),
                                GradStep(model_cfg, solver_cfg, lr_mults=mults, decay_mults=mults,
                                         mesh=mesh))
         prepare, body = per_device[dev]
-        if mesh is not None:
-            batch = shard_batch(mesh, batch)
         for name, entry in params.items():
             if is_trainable(name):
                 for v in entry.values():
@@ -162,16 +192,16 @@ def make_train_step(model_cfg: DeeperCutConfig, solver_cfg: update_rules.SolverC
 
 def make_eval_step(model_cfg: DeeperCutConfig, mesh=None, *, folded: bool = True):
     """``eval_step(params, images) -> outputs``: the forward over an NCHW
-    batch on the params' device, without autograd. With a data-parallel
-    mesh each rank runs its rows of the global batch and every rank gets
-    the whole batch's outputs (gathered in rank order)."""
-    check_data_mesh(mesh)
+    batch on the params' device, without autograd. With a mesh each data
+    row runs its rows of the global batch (whole frames: the spatial axis
+    replicates them, as the JAX package's eval step is data-parallel) and
+    every rank gets the whole batch's outputs (gathered in order)."""
 
     def eval_step(params, images):
         with torch.inference_mode():
             if mesh is None:
                 return forward(params, images, model_cfg, folded=folded)
-            local = forward(params, shard_batch(mesh, {"x": images})["x"], model_cfg,
+            local = forward(params, shard_batch(mesh, {"x": images}, rows={})["x"], model_cfg,
                             folded=folded)
             return {k: gather_rows(mesh, v) for k, v in local.items()}
 

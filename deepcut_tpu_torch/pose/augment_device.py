@@ -50,11 +50,15 @@ def _two_tap(p: torch.Tensor, size: int):
 
 
 def warp_images(raw: torch.Tensor, coef: torch.Tensor, nhw: torch.Tensor,
-                ih: int, iw: int) -> torch.Tensor:
+                ih: int, iw: int, y0: int = 0) -> torch.Tensor:
     """(B, RH, RW, 3) uint8 mean-padded raws -> (B, ih, iw, 3) f32
     mean-subtracted canvases. coef (B, 6) = [a b c d e f]; nhw (B, 4) =
     [nh nw input_h input_w]: the warped size before the edge band, and the
-    canvas size the host path would have produced (zero beyond it)."""
+    canvas size the host path would have produced (zero beyond it).
+
+    y0: the first GLOBAL canvas row produced; the row-sharded path passes
+    its block's start, and each row is computed from its own coordinate
+    alone, so the rows equal those of the full canvas bit for bit."""
     if ih % ROW_BLOCK:
         raise ValueError(f"canvas height {ih} not a multiple of {ROW_BLOCK} "
                          f"(bucket_step must be)")
@@ -69,7 +73,7 @@ def warp_images(raw: torch.Tensor, coef: torch.Tensor, nhw: torch.Tensor,
     # border tap blends toward the mean like cv2's BORDER_CONSTANT
     rawf = raw.to(f32) - mean                                    # (B, RH, RW, 3)
     x = torch.arange(iw, dtype=f32, device=dev)
-    y = torch.arange(ih, dtype=f32, device=dev)
+    y = float(y0) + torch.arange(ih, dtype=f32, device=dev)
     # the 64-px edge-replication band == clamping the canvas coordinate
     x_eff = torch.minimum(x.reshape(1, 1, iw), nw - 1.0)          # (B, 1, iw)
     y_eff = torch.minimum(y.reshape(1, ih, 1), nh - 1.0)          # (B, ih, 1)
@@ -85,7 +89,7 @@ def warp_images(raw: torch.Tensor, coef: torch.Tensor, nhw: torch.Tensor,
     # pass 2 (horizontal): out[y, x] = img1(y, d*x_eff + e*y_eff + f)
     p2 = d * x_eff + e * y_eff + f                               # (B, ih, iw)
     q0, q1, u0, u1 = _two_tap(p2, rw)
-    yi = torch.arange(ih, device=dev).reshape(1, ih, 1)
+    yi = torch.arange(ih, device=dev).reshape(1, ih, 1)   # local rows of img1
     out = u0[..., None] * img1[bi, yi, q0] + u1[..., None] * img1[bi, yi, q1]   # (B, ih, iw, 3)
 
     # the host path truncates the warped image to uint8 before the paste
@@ -97,10 +101,11 @@ def warp_images(raw: torch.Tensor, coef: torch.Tensor, nhw: torch.Tensor,
     return torch.where(band[..., None], out, 0.0)
 
 
-def warp_batch(batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def warp_batch(batch: Mapping[str, torch.Tensor], y0: int = 0) -> Dict[str, torch.Tensor]:
     """Replace a raw-image batch's ``image_raw`` / ``aug_*`` entries with the
     warped f32 canvas under ``image``, NCHW (channels_last memory). No-op
-    for a batch without ``image_raw``."""
+    for a batch without ``image_raw``. y0: the first global canvas row of
+    the ``aug_canvas`` token's rows (`warp_images`)."""
     batch = dict(batch)
     if "image_raw" not in batch:
         return batch
@@ -109,5 +114,17 @@ def warp_batch(batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     nhw = batch.pop("aug_nhw")
     token = batch.pop("aug_canvas")   # (B, ih, iw, 0): its shape is the payload
     ih, iw = int(token.shape[1]), int(token.shape[2])
-    batch["image"] = warp_images(raw, coef, nhw, ih, iw).permute(0, 3, 1, 2)
+    batch["image"] = warp_images(raw, coef, nhw, ih, iw, y0=y0).permute(0, 3, 1, 2)
     return batch
+
+
+def warp_batch_local(batch: Mapping[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """`warp_batch` for a rank of a spatial mesh (`parallel.spatial`): the
+    raw images and coefficients are its data row's (replicated over the
+    'spatial' axis), the ``aug_canvas`` token its block of the canvas rows,
+    and it warps only those rows (global rows [s*ih, (s+1)*ih)). No halos:
+    the source is the whole raw image, so the rows equal the same rows of
+    `warp_batch`'s canvas bit for bit and the warp's cost divides by the
+    axis size. No-op without ``image_raw``."""
+    return warp_batch(batch, y0=mesh.spatial_index * int(batch["aug_canvas"].shape[1])
+                      if "aug_canvas" in batch else 0)

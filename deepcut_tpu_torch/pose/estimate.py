@@ -16,6 +16,13 @@ per-bucket jit programs this estimator keeps a per-size cache of
 device-resident bilinear matrices. The tiling plan is the JAX package's
 stride-aligned one (see `_tile_plan`). `PoseEstimator.quantize_int8`
 switches every path to the int8 model (`models.quantize`).
+
+With a ``mesh`` (`parallel.mesh.make_mesh`, a 'spatial' axis of S ranks)
+frames up to S * max_size rows are computed full-frame with their rows
+split over the axis (`parallel.spatial.RowShards`: halo exchange, the
+heads on the gathered grid), in place of the host tiling loop. Serving is
+SPMD: every rank of the axis calls the same method with the same frame and
+gets the whole maps (and the same pose).
 """
 
 from __future__ import annotations
@@ -132,9 +139,15 @@ class PoseEstimator:
 
     def __init__(self, params: Params, cfg: Optional[DeeperCutConfig] = None, *,
                  folded: bool = True, bucket_step: int = 64,
-                 max_size: int = MAX_SIZE, device="cuda"):
+                 max_size: int = MAX_SIZE, device=None, mesh=None):
+        """mesh: a `parallel.mesh.Mesh` whose 'spatial' axis row-shards
+        frames of up to S * max_size rows (module docstring); every rank
+        passes the same params. device: the mesh's by default, else the
+        card."""
         self.cfg = cfg or deepercut_config(152)
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(device if device is not None else
+                                   mesh.device if mesh is not None else "cuda")
         if folded:
             if any(k.startswith("bn") for k in params):
                 params = fold_bn(params, self.cfg)
@@ -166,7 +179,9 @@ class PoseEstimator:
         estimator's own (bf16-cast when folded), widened to f32.
 
         Call once with a representative image; a second call does nothing
-        (the float model is gone after the first)."""
+        (the float model is gone after the first). With a mesh the
+        calibration runs unsharded, as in the JAX package (the image must
+        fit one device), and every rank takes rank 0's activation scales."""
         from deepcut_tpu_torch.models.quantize import prepare_int8
 
         if self._int8:
@@ -181,6 +196,13 @@ class PoseEstimator:
             qparams, act_scales = prepare_int8(params, self.cfg, canvas.permute(0, 3, 1, 2),
                                                quantize_deconv=int8_deconv,
                                                percentile=percentile)
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            keys = sorted(act_scales)
+            flat = torch.stack([act_scales[k].float() for k in keys]).to(self.device)
+            dist.broadcast(flat, src=0, group=self.mesh.group)
+            act_scales = dict(zip(keys, flat.cpu().unbind(0)))
         self.serve_int8(qparams, act_scales, int8_deconv=int8_deconv)
 
     def serve_int8(self, qparams, act_scales, *, int8_deconv: bool = False) -> None:
@@ -214,9 +236,20 @@ class PoseEstimator:
     def _maps(self, canvases: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(N, H, W, 3) f32 canvases -> prob (N, J, h, w), loc (N, 2J, h, w),
         both f32 contiguous. The NHWC -> NCHW permute gives the channels_last
-        memory the convs take."""
+        memory the convs take. With a mesh this rank computes its block of
+        the canvas rows and every rank gets the whole maps."""
+        rows = None
+        if self.mesh is not None and self.mesh.spatial > 1:
+            from deepcut_tpu_torch.parallel.spatial import (
+                RowPlan, RowShards, split_rows, trunk_heights)
+
+            h, s = int(canvases.shape[1]), self.mesh.spatial
+            rows = RowShards(self.mesh.spatial_axis,
+                             RowPlan.for_heights(s, trunk_heights(h, self.cfg)))
+            lo, hi = split_rows(h, s)[self.mesh.spatial_index]
+            canvases = canvases[:, lo:hi]
         with torch.inference_mode():
-            outs = self.model(canvases.permute(0, 3, 1, 2), heads=HEADS)
+            outs = self.model(canvases.permute(0, 3, 1, 2), heads=HEADS, rows=rows)
         return outs["prob"], outs["loc_pred"]
 
     def _decode_whole(self, prob: torch.Tensor, loc: torch.Tensor, scale: float) -> np.ndarray:
@@ -263,9 +296,17 @@ class PoseEstimator:
                 best_conf, best_pose = minconf, pose
         return best_pose
 
+    def _max_dims(self) -> Tuple[int, int]:
+        """The largest canvas (rows, columns) computed whole: a spatial axis
+        of S ranks takes S times the rows."""
+        nsp = self.mesh.spatial if self.mesh is not None else 1
+        return self.max_size * nsp, self.max_size
+
     def _estimate_single_scale(self, image: np.ndarray, scale: float) -> np.ndarray:
         h, w = image.shape[:2]
         ch, cw = canvas_size(h, scale), canvas_size(w, scale)
+        if self.mesh is not None:   # the row-sharded maps, the probability-map decode
+            return self._decode_whole(*self._scoremaps_dev(image, scale), scale)
         if ch > self.max_size or cw > self.max_size:
             return self._decode_whole(*self._scoremaps_tiled(image, scale), scale)
         bh, bw = _bucket(ch, self.bucket_step), _bucket(cw, self.bucket_step)
@@ -274,11 +315,14 @@ class PoseEstimator:
     def estimate_pose_batch(self, images: Sequence[np.ndarray],
                             scale: float = 1.0) -> np.ndarray:
         """Batched inference for same-size frames (video serving); returns
-        (N, 5, J). All frames must share H x W and fit one canvas."""
+        (N, 5, J). All frames must share H x W and fit one canvas. With a
+        mesh each frame takes the row-sharded single path."""
         h, w = images[0].shape[:2]
         for im in images:
             if im.shape[:2] != (h, w):
                 raise ValueError("estimate_pose_batch needs equal frame sizes")
+        if self.mesh is not None:
+            return np.stack([self._estimate_single_scale(im, scale) for im in images])
         ch, cw = canvas_size(h, scale), canvas_size(w, scale)
         bh, bw = _bucket(ch, self.bucket_step), _bucket(cw, self.bucket_step)
         canvases = torch.cat([self._canvas(im, scale, bh, bw) for im in images])
@@ -291,8 +335,13 @@ class PoseEstimator:
         each group runs batched with per-image valid extents (the decode
         masks each image's own grid), and oversized frames take the tiled
         single path. Returns (N, 5, J) in input order; per-image results
-        equal estimate_pose(image, [scale]) up to the batch's rounding."""
+        equal estimate_pose(image, [scale]) up to the batch's rounding. With
+        a mesh each frame takes the row-sharded single path."""
         out = np.zeros((len(images), 5, self.cfg.num_joints), np.float32)
+        if self.mesh is not None:
+            for idx, im in enumerate(images):
+                out[idx] = self._estimate_single_scale(im, scale)
+            return out
         groups: Dict[Tuple[int, int], list] = {}
         for idx, im in enumerate(images):
             h, w = im.shape[:2]
@@ -332,21 +381,37 @@ class PoseEstimator:
         n = float(len(scales))
         return self._decode_whole(acc_sm / n, acc_loc / n, 1.0)
 
-    def scoremaps(self, image: np.ndarray, scale: float = 1.0) -> Tuple[np.ndarray, np.ndarray]:
+    def scoremaps(self, image: np.ndarray, scale: float = 1.0, *, exact: bool = False
+                  ) -> Tuple[np.ndarray, np.ndarray]:
         """Full scoremaps + locref for an image, host numpy in the JAX
-        package's layout: (h, w, J) and (h, w, 2J). HD frames are tiled."""
-        sm, loc = self._scoremaps_dev(image, scale)
+        package's layout: (h, w, J) and (h, w, 2J). Frames beyond
+        `_max_dims` are tiled; with a mesh the rest run row-sharded on a
+        canvas padded with zero rows to a multiple of 8 * S (the maps are
+        then those of the padded canvas, whose bottom cells can differ from
+        the unpadded frame's), and exact=True sends a frame that needs that
+        padding to the tiled path instead, as the JAX package does."""
+        sm, loc = self._scoremaps_dev(image, scale, exact=exact)
         return (sm.permute(1, 2, 0).cpu().numpy(), loc.permute(1, 2, 0).cpu().numpy())
 
-    def _scoremaps_dev(self, image: np.ndarray, scale: float = 1.0
+    def _scoremaps_dev(self, image: np.ndarray, scale: float = 1.0, *, exact: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Device-resident (J, h, w) and (2J, h, w) maps on the unbucketed
         canvas, cropped to its ceil(canvas/8) cell grid."""
         h, w = image.shape[:2]
         ch, cw = canvas_size(h, scale), canvas_size(w, scale)
-        if ch > self.max_size or cw > self.max_size:
+        max_h, max_w = self._max_dims()
+        if ch > max_h or cw > max_w:
             return self._scoremaps_tiled(image, scale)
-        prob, loc = self._maps(self._canvas(image, scale, ch, cw))
+        pad_h = ch
+        if self.mesh is not None:
+            step = int(STRIDE) * self.mesh.spatial
+            pad_h = -(-ch // step) * step
+            if pad_h != ch and exact:
+                return self._scoremaps_tiled(image, scale)
+        canvas = self._canvas(image, scale, ch, cw)
+        if pad_h != ch:
+            canvas = torch.nn.functional.pad(canvas, (0, 0, 0, 0, 0, pad_h - ch))
+        prob, loc = self._maps(canvas)
         gh = ch // int(STRIDE)
         return prob[0, :, :gh], loc[0, :, :gh]
 

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -351,18 +351,25 @@ def rasterize_batch(anno: Mapping[str, torch.Tensor], cfg: T.TargetConfig,
     return out
 
 
-def make_batch_rasterizer(cfg: T.TargetConfig, stats: Optional[JointStats] = None):
+def make_batch_rasterizer(cfg: T.TargetConfig, stats: Optional[JointStats] = None,
+                          grid: Optional[Tuple[int, int]] = None):
     """Returns `apply(batch) -> batch` replacing the ``anno_*`` tensors with
     the dense NCHW target maps, rasterized on their device; a no-op for a
     batch that already carries dense targets. The stride-8 grid comes from
-    the NCHW ``image`` canvas (bucketed)."""
+    the NCHW ``image`` canvas (bucketed), or is `grid` = (gh, gw) where the
+    image is a row block of the canvas (`parallel.spatial`): the targets
+    are sharded over 'data' only, so every row shard rasterizes the whole
+    grid."""
     stats = stats or default_stats(cfg.num_classes)
 
     def apply(batch: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         if "anno_cls" not in batch:
             return dict(batch)
-        img = batch["image"]
-        gh, gw = img.shape[2] // T.STRIDE, img.shape[3] // T.STRIDE
+        if grid is not None:
+            gh, gw = grid
+        else:
+            img = batch["image"]
+            gh, gw = img.shape[2] // T.STRIDE, img.shape[3] // T.STRIDE
         annos = {k: v for k, v in batch.items() if k.startswith("anno_")}
         rest = {k: v for k, v in batch.items() if not k.startswith("anno_")}
         return {**rest, **rasterize_batch(annos, cfg, stats, gh, gw)}

@@ -11,13 +11,17 @@ net through the graph engine (`core.graph.Net.make_train_step`), with its
 test nets sharing the trained layers, fed by their data layers or staged
 inputs, and the same loop controls.
 
-Both take a data-parallel ``mesh=`` (`parallel.mesh.make_mesh`, one
-process per GPU): each rank pulls the GLOBAL batch from its own source
-(the same seed and cursor on every rank) and keeps its rows, the
-gradients are summed over the ranks before the update, the losses, the
-display and the test scores are the global batch's, the coordinator
-(rank 0) alone logs, runs PoseSolver's eval hook and writes snapshots,
-and every rank restores them.
+Both take a ``mesh=`` (`parallel.mesh.make_mesh`, one process per GPU):
+each rank pulls the GLOBAL batch from its own source (the same seed and
+cursor on every rank) and keeps its rows, the gradients are summed over
+the ranks before the update, the losses, the display and the test scores
+are the global batch's, the coordinator (rank 0) alone logs, runs
+PoseSolver's eval hook and writes snapshots, and every rank restores them.
+With a 'spatial' axis each rank also keeps a block of the image rows:
+PoseSolver through the row-sharded forward (`parallel.spatial`; its
+gradients still accumulate on the host over iter_size and are reduced
+once before the separate update), GraphSolver through
+`core.graph.Net.make_train_step`'s plan split (`parallel.graph_spatial`).
 
 Snapshots are the JAX package's: a ``.npz`` with ``params/<layer>/<key>``
 and ``state/...`` entries in its layouts (HWIO conv weights), so either
@@ -45,7 +49,7 @@ from deepcut_tpu_torch.models.convert import (
     save_caffemodel)
 from deepcut_tpu_torch.models.resnet import DeeperCut, init_params
 from deepcut_tpu_torch.models.train import bn_frozen_mults
-from deepcut_tpu_torch.parallel.mesh import check_data_mesh, replicated, shard_batch, tree_leaves
+from deepcut_tpu_torch.parallel.mesh import replicated, tree_leaves
 from deepcut_tpu_torch.parallel.train_step import GradStep, batch_preparer
 from deepcut_tpu_torch.solver import update_rules
 from deepcut_tpu_torch.solver.update_rules import SolverConfig
@@ -312,8 +316,7 @@ class SignalHandler:
 
 def _solver_device(device, mesh):
     """A solver's device: the one given, else the mesh's, else the card; a
-    device that is not the mesh's raises, and so does a spatial mesh."""
-    check_data_mesh(mesh)
+    device that is not the mesh's raises."""
     if mesh is None:
         return device or "cuda"
     if device is not None and torch.device(device) != mesh.device:
@@ -354,11 +357,12 @@ class GraphSolver:
     nets (Solver::InitTestNets) share the trained layers, pull from their
     own data layers and take `extra_test_inputs`.
 
-    mesh: data-parallel training of any prototxt net (the reference CLI's
+    mesh: training of any prototxt net over a mesh (the reference CLI's
     ``-gpu 0,1,...``): the data layers' batch is the GLOBAL batch, each
-    rank trains on its rows (`core.graph.Net.make_train_step`), the test
-    nets run the whole test batch on every rank. device defaults to the
-    mesh's, else the card."""
+    rank trains on its rows, and with a spatial axis on its block of the
+    image rows up to the plan's gather boundary
+    (`core.graph.Net.make_train_step`); the test nets run the whole test
+    batch on every rank. device defaults to the mesh's, else the card."""
 
     _STATE_KEYS = ("history", "update_sq", "m", "v")
 
@@ -385,7 +389,7 @@ class GraphSolver:
         self.net.materialize_params()
         if mesh is not None:
             replicated(mesh, tree_leaves(self.net.params))
-        self._step_fn = self.net.make_train_step(params.config, mesh=mesh)
+        self._step_fn = self.net.make_train_step(params.config, mesh=mesh, log=self.log)
         self.state = update_rules.init_state(params.config, self.net.params)
         self._test_nets: Optional[List] = None
         self._last_host_inputs: Dict[str, Any] = {}
@@ -700,10 +704,11 @@ class PoseSolver:
     boundaries, before that iteration's update (Solver::Step's TestAll
     gate); a returned string is logged.
 
-    mesh: data-parallel training; batch_source yields the GLOBAL batch on
-    every rank (the same sequence), each rank trains on its rows, the
-    eval hook runs on the coordinator. device defaults to the mesh's, else
-    the card."""
+    mesh: training over a mesh; batch_source yields the GLOBAL batch on
+    every rank (the same sequence), each rank trains on its rows (with a
+    spatial axis: on its block of the image rows, the canvas held to
+    `parallel.spatial.check_spatial_shapes`), the eval hook runs on the
+    coordinator. device defaults to the mesh's, else the card."""
 
     def __init__(self, params: SolverParams, model_cfg, batch_source: Callable[[], Dict[str, Any]],
                  *, net_params=None, mesh=None, lr_mults=None, handle_signals: bool = True,
@@ -728,7 +733,7 @@ class PoseSolver:
         self.signals = SignalHandler(handle_signals, sigint_effect, sighup_effect)
         self._loss_window: deque = deque(maxlen=max(params.average_loss, 1))
         self.eval_fn = eval_fn
-        self._prepare = batch_preparer(self.device, target_cfg, target_stats)
+        self._prepare = batch_preparer(self.device, target_cfg, target_stats, mesh=mesh)
         # default: BN statistics frozen like the prototxt's lr_mult-0
         # overrides; explicit lr_mults replace the default wholesale
         decay_mults = None
@@ -776,8 +781,6 @@ class PoseSolver:
             total, metrics = 0.0, {}
             for _ in range(n_acc):
                 batch = self.batch_source()
-                if self.mesh is not None:
-                    batch = shard_batch(self.mesh, batch)
                 loss, metrics = self._body.backward(self.net_params, self._prepare(batch))
                 total = total + loss
             it_pre = self.iter

@@ -32,8 +32,13 @@ MemoryData, DummyData) or Input tops. -mesh N trains data-parallel over
 N GPUs, one process each under torchrun (WORLD_SIZE must equal N): the
 solver's batch is the global batch, each rank trains on its rows, the
 gradients are summed over the ranks, rank 0 logs and writes the
-snapshots (`parallel.mesh`); -spatial > 1 (image rows sharded) raises
-NotImplementedError, it is the spatial slice of the port. Precision: the reference trains in
+snapshots (`parallel.mesh`). -mesh N -spatial S lays the N ranks out as
+(N / S data rows) x (S row shards): each rank also trains on its block of
+the image rows, with halo exchange between the shards (the pose trainer:
+`parallel.spatial`, canvases bucketed to max(64, 32 * S) rows so that H %
+16S == 0 and H >= 32S; -augment_device is ignored there, as in the JAX
+package; a graph net: `parallel.graph_spatial`, its rows sharded up to
+the first layer that cannot shard). Precision: the reference trains in
 pure f32, and cuDNN's default TF32 is not f32, so f32 training turns TF32
 off for cuDNN and matmuls and says so in its first log line;
 -mixed_precision (bf16 convs, f32 params, losses and updates) is the
@@ -78,9 +83,6 @@ from deepcut_tpu_torch.proto import text_format
 
 ENGINE_MESSAGE = ("the solver's net has no PoseData layer: a generic prototxt net trains "
                   "through solver.solver.GraphSolver (the train verb runs it)")
-SPATIAL_MESSAGE = ("-spatial > 1 (image rows sharded over a spatial axis) belongs to the "
-                   "spatial slice of the port, which is not ported yet; -mesh N trains "
-                   "data-parallel")
 
 
 def _target_config_from_layer(node) -> "TargetConfig":
@@ -147,13 +149,14 @@ def train_graph(args, sp, mesh=None) -> int:
 
 
 def pose_data(sp, *, workers: int = 4, host_targets: bool = False,
-              augment_device: bool = False):
+              augment_device: bool = False, bucket_step: int = 64):
     """The PoseData layer of a solver's train net -> ``(target_cfg,
     joint_stats, source, pose_data_param)``: the `TargetConfig`, the joint
     pair stats (None without ``joint_pairs_stats``) and a `PoseDataSource`
     of uint8 canvases with compact annotations for the device rasterizer
     (dense host maps with host_targets), seeded by the solver's
-    random_seed. Close the source when done."""
+    random_seed, canvases bucketed to `bucket_step`. Close the source when
+    done."""
     data_layer = _pose_data_layer(sp)
     if data_layer is None:
         raise NotImplementedError(ENGINE_MESSAGE)
@@ -163,7 +166,7 @@ def pose_data(sp, *, workers: int = 4, host_targets: bool = False,
         pp.get_str("source"), tcfg, stats,
         root_folder=pp.get_str("root_folder", ""),
         cycle=pp.get_bool("cycle_training_data", False),
-        bucket_step=64,
+        bucket_step=bucket_step,
         # random_seed < 0 = unseeded (solver.cpp:53-54)
         seed=(sp.random_seed if sp.random_seed >= 0
               else int.from_bytes(os.urandom(4), "little")),
@@ -176,18 +179,19 @@ def pose_data(sp, *, workers: int = 4, host_targets: bool = False,
 
 
 def _train_mesh(args):
-    """-mesh N: this process's rank of the torchrun job (its process group
-    joined on its card, or the CPU with -device cpu) -> the data-parallel
-    mesh; None without -mesh."""
-    if args.spatial > 1:
-        raise NotImplementedError(SPATIAL_MESSAGE)
+    """-mesh N [-spatial S]: this process's rank of the torchrun job (its
+    process group joined on its card, or the CPU with -device cpu) -> the
+    (N / S) x S ('data', 'spatial') mesh; None without -mesh."""
+    if args.spatial < 1 or (args.spatial > 1 and not args.mesh):
+        raise ValueError(f"-spatial {args.spatial} shards image rows over the ranks of a mesh: "
+                         f"pass -mesh N (N = data x {args.spatial} ranks, under torchrun)")
     if not args.mesh:
         return None
     from deepcut_tpu_torch.parallel import distributed
     from deepcut_tpu_torch.parallel.mesh import make_mesh
 
     device = distributed.initialize(device="cpu" if args.device == "cpu" else "cuda")
-    return make_mesh(args.mesh, device=device)
+    return make_mesh(args.mesh, spatial=args.spatial, device=device)
 
 
 def train(args) -> int:
@@ -219,9 +223,15 @@ def _train(args, mesh) -> int:
         sp.random_seed = broadcast_int(mesh, int.from_bytes(os.urandom(4), "little") >> 1)
     if _pose_data_layer(sp) is None:
         return train_graph(args, sp, mesh)
+    spatial = mesh.spatial if mesh is not None else 1
+    if args.augment_device and spatial > 1:
+        print(f"-augment_device is ignored with -spatial {spatial}: the host warps the canvases")
+    # the spatial step needs canvas H % (16 * S) == 0 and H >= 32 * S
+    # (parallel.spatial.check_spatial_shapes): buckets of 32 * S give both
     tcfg, stats, source, pp = pose_data(sp, workers=args.data_workers,
                                         host_targets=args.host_targets,
-                                        augment_device=args.augment_device)
+                                        augment_device=args.augment_device and spatial == 1,
+                                        bucket_step=max(64, 32 * spatial))
     if args.mixed_precision:
         print("mixed precision: bf16 convolutions, f32 params, losses and updates")
     else:
@@ -477,11 +487,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("-resnet", type=int, default=152, choices=(50, 101, 152))
     p.add_argument("-device", default="cuda", help="torch device to train on (cuda, cuda:1, cpu)")
     p.add_argument("-mesh", type=int, default=0,
-                   help="data-parallel over N GPUs (the -gpu 0,1,.. analog): run under "
+                   help="train over N GPUs (the -gpu 0,1,.. analog): run under "
                         "torchrun --nproc_per_node N, one process per GPU")
     p.add_argument("-spatial", type=int, default=1,
-                   help="image rows over a spatial axis: the spatial slice of the port, "
-                        "not ported yet (> 1 raises)")
+                   help="with -mesh N: shard image rows over S of the N ranks (a (N/S) x S "
+                        "data x spatial mesh, halo exchange between row shards)")
     p.add_argument("-data_workers", type=int, default=4,
                    help="decode threads in the input pipeline (0 = serial; same batches)")
     p.add_argument("-sigint_effect", default="stop", choices=["stop", "snapshot", "none"])

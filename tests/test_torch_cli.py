@@ -6,7 +6,7 @@ steps (loss 3e5, then 4e12, then NaN), so the first run finetunes from a
 tamed random `.caffemodel` (-weights, the path users take), in f32, with
 snapshots; the second resumes from that `.npz` under -mixed_precision
 -remat -augment_device; a third takes host-rasterized targets at batch 2.
--mesh outside a torchrun job and -spatial raise; a Data-layer solver
+-mesh outside a torchrun job and -spatial without -mesh raise; a Data-layer solver
 trains through GraphSolver. The data slice's verbs against the JAX
 package's: `test` and `extract_features` on a Data-layer net, the three
 `upgrade_*` verbs (byte-equal files) and the four deprecated aliases.
@@ -121,7 +121,8 @@ def test_unported_paths_raise(tmp_path, capsys, monkeypatch):
         monkeypatch.delenv(name, raising=False)
     with pytest.raises(RuntimeError, match="torchrun"):
         cli.main(["train", "-solver", str(solver), "-mesh", "2", "-device", "cpu"])
-    with pytest.raises(NotImplementedError, match="spatial slice"):
+    # -spatial shards rows over the ranks of a mesh: without -mesh it raises
+    with pytest.raises(ValueError, match="pass -mesh N"):
         cli.main(["train", "-solver", str(solver), "-spatial", "2", "-device", "cpu"])
     # a net fed by a Data layer trains through GraphSolver (the data slice)
     net, _ = data_net(tmp_path)

@@ -6,8 +6,10 @@ WORLD_SIZE, RANK, LOCAL_RANK) and call `initialize()` with no arguments
 on the CPU (gloo); each takes one data-parallel GraphSolver step, the
 coordinator alone writes the snapshot (the other rank's writer is made to
 raise), and both restore it and hold the same params. Then the CLI's
-``train -mesh 2`` runs under the same environment. Each subprocess is
-waited for at most 120 s.
+``train -mesh 2`` runs under the same environment, and ``train -mesh 2
+-spatial 2`` trains the pose net (ResNet-50 from tamed weights) with the
+canvas rows split over the two ranks. Each subprocess is waited for at
+most 120 s.
 """
 
 import os
@@ -131,3 +133,26 @@ def test_cli_train_mesh_under_torchrun_env(tmp_path):
     bad = _launch(cli + ["-mesh", "4"], cwd=str(tmp_path))
     for rc, _, err in bad:
         assert rc != 0 and "4 devices requested but the process group has 2 ranks" in err
+
+
+def test_cli_train_mesh_spatial_under_torchrun_env(tmp_path):
+    """``train -mesh 2 -spatial 2`` on a PoseData solver: a (1, 2) mesh,
+    each rank on half the canvas rows (buckets of 64 rows); rank 0 logs a
+    finite global loss and writes the snapshot, the other rank is silent;
+    -spatial that does not divide the ranks raises."""
+    from test_torch_cli import losses, write_dataset, write_solver, write_tamed_weights
+
+    solver = write_solver(tmp_path, write_dataset(tmp_path, n=1), 1)
+    weights = write_tamed_weights(tmp_path / "tamed.caffemodel")
+    cli = ["-m", "deepcut_tpu_torch.tools.cli", "train", "-solver", str(solver), "-weights",
+           str(weights), "-resnet", "50", "-device", "cpu", "-data_workers", "0"]
+    outs = _launch(cli + ["-mesh", "2", "-spatial", "2"], cwd=str(tmp_path))
+    for rc, out, err in outs:
+        assert rc == 0, f"rank failed:\n{out}\n{err[-3000:]}"
+    got = losses(outs[0][1])
+    assert len(got) == 1 and 0 < got[0] < 100, outs[0][1]
+    assert "loss = " not in outs[1][1]
+    assert (tmp_path / "snap" / "pose_iter_1.npz").is_file()
+    bad = _launch(cli + ["-mesh", "2", "-spatial", "3"], cwd=str(tmp_path))
+    for rc, _, err in bad:
+        assert rc != 0 and "not divisible by spatial=3" in err

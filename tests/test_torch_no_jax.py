@@ -16,7 +16,10 @@ port's PCKh (`pose.evaluate`), and the data slice: `convert_imageset`,
 `compute_image_mean` and `test` on a Data-layer net; the matcaffe
 gateway's `get_net` / `net_forward` on the CPU (its default device
 `cuda:0` read first), and two data-parallel GraphSolver steps in a gloo
-group of one.
+group of one. Two more subprocesses, blocking both too, form a gloo group
+of two and drive the spatial slice (`parallel.spatial`,
+`parallel.graph_spatial`) on a (1, 2) mesh: a row-sharded train step, a
+`PoseEstimator(mesh=)` in bf16 and int8, and a graph net's spatial step.
 """
 
 import os
@@ -127,7 +130,66 @@ dp.step(2)
 assert dp.iter == 2 and np.isfinite(dp.smoothed_loss)
 distributed.shutdown()
 assert not BLOCKED & {m.split(".")[0] for m, mod in sys.modules.items() if mod is not None}
+assert {"deepcut_tpu_torch.parallel.spatial", "deepcut_tpu_torch.parallel.graph_spatial"} <= set(names)
 print("modules", len(names))
+"""
+
+SPATIAL_WORKER = r"""
+import sys
+sys.modules["jax"] = None
+sys.modules["deepcut_tpu"] = None
+import numpy as np, torch
+from deepcut_tpu_torch.core.graph import Net
+from deepcut_tpu_torch.models.resnet import DeeperCutConfig, init_params
+from deepcut_tpu_torch.parallel import distributed
+from deepcut_tpu_torch.parallel.mesh import make_mesh
+from deepcut_tpu_torch.parallel.train_step import make_train_step
+from deepcut_tpu_torch.pose.estimate import PoseEstimator
+from deepcut_tpu_torch.proto import text_format
+from deepcut_tpu_torch.solver import update_rules
+
+distributed.initialize(device="cpu")
+mesh = make_mesh(2, spatial=2)
+cfg = DeeperCutConfig(depths=(1, 1, 1, 1), stage_widths=(4, 4, 8, 8), num_joints=3,
+                      pairwise=False)
+params = init_params(torch.Generator().manual_seed(0), cfg)
+est = PoseEstimator(params, cfg, mesh=mesh)
+img = np.random.RandomState(0).randint(0, 256, (100, 90, 3), np.uint8)
+sm, _ = est.scoremaps(img)
+est.quantize_int8(img)
+sm8, _ = est.scoremaps(img)
+assert sm.shape == sm8.shape == (13, 12, 3) and np.isfinite(sm8).all()
+fcfg = DeeperCutConfig(depths=(1, 1, 1, 1), stage_widths=(4, 4, 8, 8), num_joints=3,
+                       pairwise=False, compute_dtype=torch.float32)
+scfg = update_rules.SolverConfig(base_lr=1e-4)
+p = init_params(torch.Generator().manual_seed(0), fcfg)
+rng = np.random.RandomState(1)
+batch = {"image": rng.randn(2, 64, 32, 3).astype(np.float32),
+         "part_score_targets": np.zeros((2, 8, 4, 3), np.float32),
+         "part_score_weights": np.ones((2, 8, 4, 3), np.float32)}
+p, _, metrics = make_train_step(fcfg, scfg, mesh)(p, update_rules.init_state(scfg, p), batch)
+assert np.isfinite(float(metrics["total_loss"]))
+net = Net(text_format.parse(sys.argv[1]), phase="TRAIN", compute_dtype=None, device="cpu")
+step = net.make_train_step(scfg, mesh=mesh)
+_, _, loss = step(net.params, update_rules.init_state(scfg, net.params),
+                  {"data": rng.randn(2, 3, 16, 16).astype(np.float32),
+                   "label": np.array([0.0, 1.0], np.float32)})
+assert np.isfinite(float(loss)) and next(iter(step.plans.values()))[0] == 2
+distributed.shutdown()
+assert not {"jax", "deepcut_tpu"} & {m.split(".")[0] for m, mod in sys.modules.items()
+                                      if mod is not None}
+print("SPATIAL_OK", flush=True)
+"""
+
+CONV_NET = """
+input: "data"  input_shape { dim: 2 dim: 3 dim: 16 dim: 16 }
+input: "label" input_shape { dim: 2 }
+layer { name: "c1" type: "Convolution" bottom: "data" top: "c1"
+  convolution_param { num_output: 4 kernel_size: 3 pad: 1 weight_filler { type: "xavier" } } }
+layer { name: "r1" type: "ReLU" bottom: "c1" top: "c1" }
+layer { name: "ip" type: "InnerProduct" bottom: "c1" top: "ip"
+  inner_product_param { num_output: 2 weight_filler { type: "xavier" } } }
+layer { name: "loss" type: "SoftmaxWithLoss" bottom: "ip" bottom: "label" top: "loss" }
 """
 
 GRAPH_NET = """
@@ -180,3 +242,11 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     assert np.load(tmp_path / "p.npz.int8.npz")["pose"].shape == (5, 3)
     assert "Testing net (#0)" in proc.stdout and (tmp_path / "g_iter_2.caffemodel").is_file()
     assert "Processed 2 files into db" in proc.stdout and "loss = " in proc.stdout.split("mean of")[-1]
+
+
+def test_spatial_slice_runs_without_jax():
+    from test_torch_distributed import _launch
+
+    outs = _launch(["-c", SPATIAL_WORKER, CONV_NET])
+    for rc, out, err in outs:
+        assert rc == 0 and "SPATIAL_OK" in out, f"worker failed:\n{out}\n{err[-3000:]}"

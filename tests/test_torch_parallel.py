@@ -584,15 +584,15 @@ def test_planted_backward_all_reduce_is_caught(dp_runs, single):
 
 
 def test_mesh_entry_points_raise_without_a_group(monkeypatch):
-    """No process group, no mesh (no silent world of 1); a spatial axis
-    raises naming the spatial slice; a batch that does not split raises."""
+    """No process group, no mesh (no silent world of 1), with a spatial
+    axis too; a batch that does not split raises."""
     from deepcut_tpu_torch.parallel import distributed
     from deepcut_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_batch
 
     assert not torch.distributed.is_initialized() and distributed.is_coordinator()
     with pytest.raises(RuntimeError, match="no process group"):
         make_mesh(2)
-    with pytest.raises(NotImplementedError, match="spatial slice"):
+    with pytest.raises(RuntimeError, match="no process group"):
         make_mesh(2, spatial=2)
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     with pytest.raises(RuntimeError, match="WORLD_SIZE"):

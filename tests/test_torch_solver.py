@@ -11,7 +11,7 @@ the device), on the tiny model of tests/test_torch_training.py:
   identically; the same keys on both sides;
 - the `.caffemodel` export read back by `load_deepercut_params`;
 - the eval hook with the port's `PoseEstimator` and PCKh harness;
-- `make_train_step` against the JAX one; a spatial mesh= raises.
+- `make_train_step` against the JAX one; a spatial mesh= checks its canvas.
 
 Tolerance: losses rtol 1e-5. Params: each leaf within 1e-3 of the
 distance it moved from the init (measured <= 8e-5), + 1e-7: the gradients
@@ -227,11 +227,12 @@ def test_mesh_and_iter_size_raise():
 
     cfg = tu.SolverConfig()
     spatial = Mesh(None, 0, 1, 2, torch.device("cpu"))   # rows over a spatial axis
-    with pytest.raises(NotImplementedError, match="spatial slice"):
-        make_train_step(port_cfg(), cfg, mesh=spatial)
-    with pytest.raises(NotImplementedError, match="spatial slice"):
-        ts.PoseSolver(ts.SolverParams(config=cfg), port_cfg(), lambda: {}, mesh=spatial,
-                      device="cpu")
+    # the spatial step checks the shape contract before any collective
+    step = make_train_step(port_cfg(), cfg, mesh=spatial)
+    params = params_from_numpy(tame_params(jax_cfg()))
+    with pytest.raises(ValueError, match="divisible by 16"):
+        step(params, tu.init_state(cfg, params),
+             {"image": np.zeros((1, 40, 64, 3), np.float32)})
     with pytest.raises(ValueError, match="iter_size"):
         make_train_step(port_cfg(), dataclasses.replace(cfg, iter_size=2))
 
