@@ -16,7 +16,9 @@ points, in phases; any failure raises and the exit code is non-zero:
    (csrc/int8_conv.cu: im2col, epilogue, quantize);
 3. each kernel against its plain PyTorch version on the card: the decode's
    fused entry and its probability-map entry (argmax and pose bit for bit,
-   on ties, all-equal, bf16-valued and NaN maps), the epilogue bit for bit
+   on ties, all-equal, bf16-valued and NaN maps; the prob entry also at the
+   shapes its paths launch and on their strided views: row-cropped,
+   channel-sliced, rows outermost, loc in wider rows), the epilogue bit for bit
    (random, residual, strided residual), the int8 im2col, epilogue (each
    mode of the int8 forward) and quantization (+-127, .5 ties) bit for bit,
    and the route im2col + torch._int_mm equal to an exact f64 convolution's
@@ -24,7 +26,9 @@ points, in phases; any failure raises and the exit code is non-zero:
    operands (allowed against not allowed, 1e-5 relative);
 4. the serving slice (random weights from a seeded generator, tamed):
    estimate_pose, estimate_pose_batch, bf16 against f32 scoremaps, an HD
-   frame on the tiled path;
+   frame on the tiled path and estimate_pose_avg over a 688 frame at
+   PYRAMID_SCALES, each decoded by one launch of the probability-map entry
+   bit-equal to the plain version on the path's own maps;
 5. examples/pose/serve.py, unchanged, serving the port's estimator: three
    concurrent HTTP requests of mixed sizes, one of them HD;
 Q. int8 serving: quantize_int8 on a 480x640 frame, estimate_pose and
@@ -123,7 +127,10 @@ S. the spatial axis: two spawned ranks on the one card over gloo (CUDA
 6. times on the card, each beside the card's name and limit: the bf16 and
    int8 serving forwards and estimate_pose_batch at batch 1 and 4
    (CUDA-event wall time, torch.profiler device busy time, idle share,
-   kernels per call), each kernel at the main path's shapes beside its
+   kernels per call), the same for estimate_pose on a 720x1280 frame (the
+   tiled path) and estimate_pose_avg, with the profiler's kernels per
+   `_decode_whole` call (the prob entry alone), each kernel at the main
+   path's shapes (the prob entry at its paths' PROB_SHAPES) beside its
    plain version, its bound and a library call where one computes the
    same function (quantize_i8 with the L2 flushed before each call),
    torch._int_mm per GEMM shape of the int8 forward against its int8 bound,
@@ -144,7 +151,8 @@ launches conv_epilogue), again before M and after it (MatCaffe and the
 data-parallel path: the eval hook's decode), again before S and after it
 (the spatial path, with the counts of its two ranks: every kernel), and again before E and after it (the engine's
 training path, which launches no kernel: its f32 stream rounds nowhere).
-The launch geometries of every path but E are replayed against the plain
+The launch geometries of every path but E (the decode's probability-map
+entry's too: its views and valid sizes) are replayed against the plain
 kernels after S (S's ranks replay their own). --serving-times imports only what the package had before the conv
 epilogue kernel, so the same timing runs over an older checkout of the
 package (run from that checkout) for a comparison inside one call.
@@ -185,6 +193,14 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 J = 14
 KERNEL_SHAPES = [(1, J, 87, 87), (4, J, 86, 86), (3, J, 250, 188)]
+# The probability-map entry at the shapes its paths launch, batch 1, and at
+# batch 4 on the 704 bucket's grid (the shape of the earlier readings).
+PROB_SHAPES = [((1, J, 86, 86), "a 688 frame's scoremaps, or a 688 frame under a mesh"),
+               ((1, J, 90, 160), "the tiled HD path's 720x1280 frame (phase 4)"),
+               ((1, J, 136, 240), "a 1088x1920 frame under a mesh (S3)"),
+               ((4, J, 88, 88), "batch 4 on the 704 bucket's grid")]
+PROB_RECORD_SHAPE = (1, J, 90, 160)   # the JSON record's: the tiled HD path's decode
+PYRAMID_SCALES = (0.8, 1.0, 1.2)      # estimate_pose_avg's scales in phases 4 and 6
 # The fused decode's (n, h, w, channels beyond 3J): the serving path's 88 x 88
 # grid (704 canvas) at batch 1 and 4 (8-byte copies), a large grid with an
 # odd channel count (4-byte copies), and rows so wide that its shared memory
@@ -346,46 +362,109 @@ def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     return int(d.max()) if d.numel() else 0
 
 
+def _strided(kind: str, prob: torch.Tensor, loc: torch.Tensor, rng):
+    """prob (n, J, h, w) and loc (n, 2J, h, w) as views of another layout
+    holding the same values: the paths' row crop of a taller map, both maps
+    sliced out of one larger map, the pyramid's average ((rows, joints)
+    swapped in memory), and a loc cut out of wider rows."""
+    n, _, h, w = prob.shape
+    if kind == "row-cropped":
+        out = []
+        for t in (prob, loc):
+            big = torch.from_numpy(rng.rand(n, t.shape[1], h + 7, w).astype(np.float32))
+            big[:, :, :h] = t
+            out.append(big[:, :, :h])
+        return tuple(out)
+    if kind == "channel-sliced":
+        big = torch.from_numpy(rng.rand(n, 3 * J + 5, h, w).astype(np.float32))
+        big[:, 2:2 + J], big[:, 2 + J:2 + 3 * J] = prob, loc
+        return big[:, 2:2 + J], big[:, 2 + J:2 + 3 * J]
+    if kind == "rows-outer":
+        return tuple(t.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3) for t in (prob, loc))
+    if kind == "loc in wider rows":
+        big = torch.from_numpy(rng.randn(n, 2 * J, h, w + 5).astype(np.float32))
+        big[..., 3:3 + w] = loc
+        return prob, big[..., 3:3 + w]
+    raise ValueError(kind)
+
+
+# The probability-map entry's views, each at a path's shape (batch 1).
+STRIDED_CASES = [("row-cropped", (1, J, 86, 86)), ("row-cropped", (1, J, 136, 240)),
+                 ("channel-sliced", (1, J, 90, 160)), ("rows-outer", (1, J, 86, 86)),
+                 ("loc in wider rows", (2, J, 45, 61))]
+
+
 def _kernel_cases(rng):
-    for shape in KERNEL_SHAPES:
+    """(name, prob, loc, valid rows, valid columns) for the probability-map
+    entry, on the CPU: every shape of KERNEL_SHAPES and PROB_SHAPES with
+    random, tied, all-equal, bf16-valued and NaN maps, then the paths'
+    strided views."""
+    for shape in KERNEL_SHAPES + [s for s, _ in PROB_SHAPES]:
         n, _, h, w = shape
         rand = rng.rand(*shape).astype(np.float32)
         ties = np.round(rand * 8) / 8                               # many equal maxima
         bf16 = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 3).to(torch.bfloat16).float()
+        nan = rand.copy()
+        nan[0, :3, h // 2, w // 3] = np.nan
+        nan[-1, 5, 0, 0] = np.nan
+        nan[0, 1, h - 1, w - 1] = np.inf
         loc = torch.from_numpy(rng.randn(n, 2 * J, h, w).astype(np.float32))
-        full = (torch.full((n,), h, dtype=torch.int32), torch.full((n,), w, dtype=torch.int32))
-        masked = (torch.from_numpy(rng.randint(1, h + 1, n).astype(np.int32)),
-                  torch.from_numpy(rng.randint(1, w + 1, n).astype(np.int32)))
-        yield f"{shape} random", torch.from_numpy(rand), loc, full
-        yield f"{shape} ties masked", torch.from_numpy(ties.astype(np.float32)), loc, masked
-        yield f"{shape} all-equal", torch.full(shape, 0.5), loc, masked
-        yield f"{shape} bf16-upcast masked", bf16, loc, masked
+        full = ([h] * n, [w] * n)
+        masked = (rng.randint(1, h + 1, n).tolist(), rng.randint(1, w + 1, n).tolist())
+        yield f"{shape} random", torch.from_numpy(rand), loc, *full
+        yield f"{shape} ties masked", torch.from_numpy(ties.astype(np.float32)), loc, *masked
+        yield f"{shape} all-equal", torch.full(shape, 0.5), loc, *masked
+        yield f"{shape} bf16-upcast masked", bf16, loc, *masked
+        yield f"{shape} NaN", torch.from_numpy(nan), loc, *full
+    for kind, shape in STRIDED_CASES:
+        n, _, h, w = shape
+        ties = torch.from_numpy((np.round(rng.rand(*shape) * 8) / 8).astype(np.float32))
+        loc = torch.from_numpy(rng.randn(n, 2 * J, h, w).astype(np.float32))
+        prob, loc = _strided(kind, ties, loc, rng)
+        yield f"{shape} {kind} ties", prob, loc, [h] * n, [w] * n
+        yield (f"{shape} {kind} ties masked", prob, loc, rng.randint(0, h + 1, n).tolist(),
+               rng.randint(1, w + 1, n).tolist())
+
+
+def _on_card(t: torch.Tensor) -> torch.Tensor:
+    """The same view (shape, strides, storage offset) of a copy of t's
+    storage on the card: a strided case stays a view there."""
+    storage = torch.empty(0, dtype=t.dtype).set_(t.untyped_storage())
+    return storage.cuda().as_strided(t.shape, t.stride(), t.storage_offset())
 
 
 def check_decode_prob() -> float:
-    """The probability-map entry against its plain version."""
+    """The probability-map entry against its plain version on the card:
+    argmax and pose bit for bit (NaN where NaN), sizes as ints."""
     rng = np.random.RandomState(SEED)
-    max_err = 0.0
-    for name, prob, loc, (vh, vw) in _kernel_cases(rng):
-        prob, loc, vh, vw = (t.cuda().contiguous() for t in (prob, loc, vh, vw))
-        for scale in (1.0, 0.75):
+    max_err, cases = 0.0, 0
+    for name, prob, loc, vh, vw in _kernel_cases(rng):
+        prob, loc = _on_card(prob), _on_card(loc)
+        valid = tuple(torch.tensor(v, dtype=torch.int32, device="cuda") for v in (vh, vw))
+        for scale in (1.0, 0.75, 1.3):
             got = cuda_decode.decode_pose(prob, loc, vh, vw, scale)
-            ref = decode_pose_batch(prob, loc, scale=scale, valid_hw=(vh, vw))
+            ref = decode_pose_batch(prob, loc, scale=scale, valid_hw=valid)
             torch.cuda.synchronize()
-            if not torch.equal(got, ref):
-                raise AssertionError(f"decode (prob entry) differs from plain on {name}")
-            max_err = max(max_err, float((got - ref).abs().max()))
+            if not _same(got, ref):
+                raise AssertionError(f"decode (prob entry) differs from plain on {name} at "
+                                     f"scale {scale}")
+            d = (got - ref).abs()
+            max_err = max(max_err, float(d[d.isfinite()].max()) if d.isfinite().any() else 0.0)
         # argmax indices: with zero offsets at scale 1, x and y are cell*8+4
         cells = cuda_decode.decode_pose(prob, torch.zeros_like(loc), vh, vw, 1.0)
         idx = ((cells[:, 1] - 4) / 8).long() * prob.shape[3] + ((cells[:, 0] - 4) / 8).long()
         rows = torch.arange(prob.shape[2], device="cuda").reshape(1, 1, -1, 1)
         cols = torch.arange(prob.shape[3], device="cuda").reshape(1, 1, 1, -1)
-        keep = (rows < vh.reshape(-1, 1, 1, 1)) & (cols < vw.reshape(-1, 1, 1, 1))
+        keep = (rows < valid[0].reshape(-1, 1, 1, 1)) & (cols < valid[1].reshape(-1, 1, 1, 1))
         masked = torch.where(keep, prob, torch.tensor(float("-inf"), device="cuda"))
         if not torch.equal(idx, torch.argmax(masked.flatten(2), dim=2)):
             raise AssertionError(f"decode (prob entry) argmax differs from plain on {name}")
-    log(f"decode prob entry == plain: argmax and pose bit-equal on {len(KERNEL_SHAPES) * 4} "
-        f"cases x 2 scales (max |err| {max_err:.3g})")
+        cases += 1
+    limits = cuda_decode.fused_limits()
+    log(f"decode prob entry == plain ({limits['prob_cluster']}-block clusters): argmax and pose "
+        f"bit-equal on {cases} cases x 3 scales (shapes {KERNEL_SHAPES} and the paths' "
+        f"{[s for s, _ in PROB_SHAPES]}: random, ties, all-equal, bf16-valued, NaN, masked and "
+        f"not; views {sorted({k for k, _ in STRIDED_CASES})}; max |err| {max_err:.3g})")
     return max_err
 
 
@@ -619,14 +698,16 @@ def _view(geometry, fill):
     return fill(numel, getattr(torch, dtype.split(".")[-1])).as_strided(shape, strides, offset)
 
 
-def replay_path_geometries(epilogue: dict, recorded: dict, device: str = "cuda") -> dict:
+def replay_path_geometries(epilogue: dict, recorded: dict, decode: dict,
+                           device: str = "cuda") -> dict:
     """Every distinct launch geometry (shape, strides, storage offset and
     mode) that the main paths gave conv_epilogue, int8_im2col,
-    int8_epilogue and quantize_i8 (recorded by their wrappers: `epilogue`
-    is conv_epilogue's record, `recorded` int8_conv's), replayed on
-    fresh random inputs against the plain version on the card, bit for bit.
-    -> {kernel: number of geometries}. On the CPU (a rehearsal) both sides
-    take the plain version."""
+    int8_epilogue, quantize_i8 and the decode's probability-map entry
+    (recorded by their wrappers: `epilogue` is conv_epilogue's record,
+    `recorded` int8_conv's, `decode` the decode's: its views and valid
+    sizes), replayed on fresh random inputs against the plain version on
+    the card, bit for bit. -> {kernel: number of geometries}. On the CPU
+    (a rehearsal) both sides take the plain version."""
     from deepcut_tpu_torch.ops import conv_epilogue, int8_conv as ic
 
     gen = torch.Generator(device=device).manual_seed(SEED + 8)
@@ -692,6 +773,19 @@ def replay_path_geometries(epilogue: dict, recorded: dict, device: str = "cuda")
     for name, key in (("int8_im2col", "im2col_launches"), ("int8_epilogue", "epilogue_launches"),
                       ("quantize_i8", "quantize_launches")):
         done[name] = len(recorded.get(key, {}))
+
+    def probs(n, _):   # probabilities in steps of 1/64: ties across the map
+        return torch.round(torch.rand(n, generator=gen, device=device) * 64) / 64
+
+    for (pg, lg, vh, vw), (scale,) in decode.items():
+        prob, loc = _view(pg, probs), _view(lg, randn(2))
+        got = cuda_decode.decode_pose(prob, loc, list(vh), list(vw), scale)
+        ref = decode_pose_batch(prob, loc, scale=scale,
+                                valid_hw=(torch.tensor(vh), torch.tensor(vw)))
+        if not _same(got, ref):
+            raise AssertionError(f"decode (prob entry) differs from plain at the path's {pg} "
+                                 f"loc {lg} valid {vh} x {vw} scale {scale}")
+    done["decode_pose_prob"] = len(decode)
     log(f"the main paths' launch geometries replayed against the plain versions on fresh "
         f"random inputs, bit-equal: {done}")
     return done
@@ -784,14 +878,58 @@ def phase_slice(rng):
     tiled = []
     inner = est._scoremaps_tiled
     est._scoremaps_tiled = lambda *a: tiled.append(a) or inner(*a)
-    hd = frame(rng, 720, 1280)
-    pose_hd = est.estimate_pose(hd)
-    del est._scoremaps_tiled
-    if not tiled or pose_hd is None or not np.isfinite(pose_hd).all():
-        raise AssertionError("HD frame did not take the tiled path or gave no pose")
-    log(f"HD 720x1280: tiled path ({canvas_size(720, 1)}x{canvas_size(1280, 1)} canvas), "
-        f"finite (5, 14)")
+    with decoded_wholes(est) as decoded:
+        hd = frame(rng, 720, 1280)
+        pose_hd = est.estimate_pose(hd)
+        del est._scoremaps_tiled
+        if not tiled or pose_hd is None or not np.isfinite(pose_hd).all():
+            raise AssertionError("HD frame did not take the tiled path or gave no pose")
+        log(f"HD 720x1280: tiled path ({canvas_size(720, 1)}x{canvas_size(1280, 1)} canvas), "
+            f"finite (5, 14)")
+        pose_avg = est.estimate_pose_avg(frame(np.random.RandomState(SEED + 11), 688, 688),
+                                         PYRAMID_SCALES)
+        if pose_avg.shape != (5, J) or not np.isfinite(pose_avg).all():
+            raise AssertionError(f"estimate_pose_avg: bad pose {pose_avg}")
+    check_decoded_wholes(decoded, ("the tiled HD frame", f"the pyramid {PYRAMID_SCALES}"))
     return est
+
+
+@contextlib.contextmanager
+def decoded_wholes(est):
+    """Records each `_decode_whole` call of `est` inside the block: its maps
+    (the views the decode read), scale, pose and the probability-map
+    entry's launches during it."""
+    calls = []
+    inner = est._decode_whole
+
+    def capture(prob, loc, scale):
+        before = cuda_decode.prob_launches
+        pose = inner(prob, loc, scale)
+        calls.append((prob, loc, scale, pose, cuda_decode.prob_launches - before))
+        return pose
+
+    est._decode_whole = capture
+    try:
+        yield calls
+    finally:
+        del est._decode_whole
+
+
+def check_decoded_wholes(calls, names) -> None:
+    """Each recorded `_decode_whole` launched the probability-map entry once
+    and gave the plain version's pose on the path's own maps, bit for bit."""
+    if len(calls) != len(names):
+        raise AssertionError(f"{len(calls)} decodes of whole maps for {names}")
+    for (prob, loc, scale, pose, launches), name in zip(calls, names):
+        h, w = prob.shape[1:]
+        ref = decode_pose_batch(prob[None], loc[None], scale=scale,
+                                valid_hw=(torch.tensor([h]), torch.tensor([w])))[0]
+        same = _same(torch.from_numpy(pose), ref.cpu())
+        if launches != 1 or not same:
+            raise AssertionError(f"the decode of {name}: {launches} launches of the prob entry "
+                                 f"(want 1), pose {'equal to' if same else 'differs from'} plain's")
+        log(f"decode of {name}: maps {tuple(prob.shape)} strides {prob.stride()} / loc "
+            f"{loc.stride()}, one launch of the prob entry, pose bit-equal to plain")
 
 
 # -- Q. the int8 slice ---------------------------------------------------------
@@ -3217,8 +3355,8 @@ def _s_rank(rank: int, port: int, spec_path: str, out_dir: str) -> None:
                "s3": _s3_serving(spec, mesh)}
         if spec["device"] != "cpu":
             out["counts"] = _counts()
-            epilogue, recorded = _record_geometries(False)
-            out["replayed"] = replay_path_geometries(epilogue, recorded, device=str(dev))
+            epilogue, recorded, decode = _record_geometries(False)
+            out["replayed"] = replay_path_geometries(epilogue, recorded, decode, device=str(dev))
             out["im2col_pads"] = sorted({g[3] for g in recorded.get("im2col_launches", {})})
         with open(Path(out_dir) / f"s_rank{rank}.pkl", "wb") as f:
             pickle.dump(out, f)
@@ -3624,8 +3762,8 @@ def _bound_ms(nbytes: float) -> float:
 def kernel_times(card: str) -> dict:
     """Each kernel at the main path's shapes (704 canvas, batch 4) beside its
     plain version, its bound and, where one exists, a single PyTorch call
-    computing the same function; the decode's probability-map entry in the
-    same call."""
+    computing the same function; the decode's probability-map entry at the
+    shapes its paths launch (PROB_SHAPES) in the same call."""
     from deepcut_tpu_torch.ops import conv_epilogue
 
     rng = np.random.RandomState(SEED + 3)
@@ -3634,33 +3772,23 @@ def kernel_times(card: str) -> dict:
     loc = torch.from_numpy(rng.randn(n, h, w, 2 * J).astype(np.float32))
     fused = torch.cat([logits, loc], -1).cuda().permute(0, 3, 1, 2)
     vh = vw = [h] * n
-    prob = torch.sigmoid(fused[:, :J]).contiguous()
-    locc = fused[:, J:].contiguous()
     vht = torch.full((n,), h, dtype=torch.int32, device="cuda")
     rows = torch.arange(h, device="cuda").reshape(1, 1, -1, 1)
-    masked = torch.where(rows < vht.reshape(-1, 1, 1, 1), prob, float("-inf"))
-    out = {}
+    masked = torch.where(rows < vht.reshape(-1, 1, 1, 1), torch.sigmoid(fused[:, :J]), float("-inf"))
     it = 500
-    t = {"fused": _events_ms(lambda: cuda_decode.decode_fused(fused, J, vh, vw), it),
-         "fused_plain": _events_ms(lambda: cuda_decode.decode_fused_plain(fused, J, vh, vw), it),
-         "prob": _events_ms(lambda: cuda_decode.decode_pose(prob, locc, vht, vht), it),
-         "prob_plain": _events_ms(lambda: decode_pose_batch(prob, locc, valid_hw=(vht, vht)), it),
-         "library": _events_ms(lambda: torch.max(masked.flatten(2), 2), it)}
+    fn = lambda: cuda_decode.decode_fused(fused, J, vh, vw)  # noqa: E731
+    ms = _events_ms(fn, it)
+    plain_ms = _events_ms(lambda: cuda_decode.decode_fused_plain(fused, J, vh, vw), it)
+    library_ms = _events_ms(lambda: torch.max(masked.flatten(2), 2), it)
     cells = n * J * h * w
-    out["decode_pose"] = dict(ms=t["fused"], plain_ms=t["fused_plain"], library_ms=t["library"],
-                              bound_ms=_bound_ms(cells * 4 + n * J * 2 * 4 + n * 5 * J * 4))
-    out["decode_pose_prob"] = dict(ms=t["prob"], plain_ms=t["prob_plain"], library_ms=t["library"],
-                                   bound_ms=_bound_ms(cells * 4 + n * J * 2 * 4 + 2 * n * 4
-                                                      + n * 5 * J * 4))
-    dev = {k: _kernel_device_us(name, fn, 50, out[name]["bound_ms"]) for k, name, fn in (
-        ("fused", "decode_pose", lambda: cuda_decode.decode_fused(fused, J, vh, vw)),
-        ("prob", "decode_pose_prob", lambda: cuda_decode.decode_pose(prob, locc, vht, vht)))}
-    for key, name in (("fused", "decode fused entry (redesigned)"), ("prob", "decode prob entry")):
-        log(f"time [{card}]: {name} at {(n, 3 * J if key == 'fused' else J, h, w)}: "
-            f"{t[key] * 1000:.2f} us per call (CUDA events over {it} calls), device time "
-            f"{dev[key]}, plain PyTorch {t[key + '_plain'] * 1000:.2f} us, "
-            f"torch.max over masked prob {t['library'] * 1000:.2f} us, bound "
-            f"{out['decode_pose' if key == 'fused' else 'decode_pose_prob']['bound_ms'] * 1000:.3f} us")
+    out = {"decode_pose": dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                               bound_ms=_bound_ms(cells * 4 + n * J * 2 * 4 + n * 5 * J * 4))}
+    dev = _kernel_device_us("decode_pose", fn, 50, out["decode_pose"]["bound_ms"])
+    log(f"time [{card}]: decode fused entry at {(n, 3 * J, h, w)}: {ms * 1000:.2f} us per call "
+        f"(CUDA events over {it} calls), device time {dev}, plain PyTorch {plain_ms * 1000:.2f} "
+        f"us, torch.max over masked prob {library_ms * 1000:.2f} us, bound "
+        f"{out['decode_pose']['bound_ms'] * 1000:.3f} us")
+    out["decode_pose_prob"] = prob_entry_times(card)[PROB_RECORD_SHAPE]
 
     shape = (4, 512, 88, 88)                  # a res3 block end: residual and ReLU
     y, bias, res = _epilogue_case(rng, shape, True)
@@ -3676,6 +3804,116 @@ def kernel_times(card: str) -> dict:
         f"{plain_ms * 1000:.2f} us, bound {out['conv_epilogue']['bound_ms'] * 1000:.2f} us "
         f"(reads y and the residual, writes y)")
     return out
+
+
+def prob_entry_times(card: str) -> dict:
+    """The decode's probability-map entry at PROB_SHAPES, every cell valid,
+    as its paths launch it: per call (CUDA events), device time (profiler),
+    the plain version, torch.max over the masked map of the same shape, and
+    the byte bound (each valid cell's f32 read once, the two loc values per
+    joint, the (N, 5, J) pose written). -> {shape: record}."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    records, it = {}, 100
+    for shape, what in PROB_SHAPES:
+        n, _, h, w = shape
+        prob = torch.rand(shape, generator=gen, device="cuda")
+        loc = torch.randn((n, 2 * J, h, w), generator=gen, device="cuda")
+        vh, vw = [h] * n, [w] * n
+        valid = tuple(torch.tensor(v, dtype=torch.int32, device="cuda") for v in (vh, vw))
+        rows = torch.arange(h, device="cuda").reshape(1, 1, -1, 1)
+        cols = torch.arange(w, device="cuda").reshape(1, 1, 1, -1)
+        keep = (rows < valid[0].reshape(-1, 1, 1, 1)) & (cols < valid[1].reshape(-1, 1, 1, 1))
+        masked = torch.where(keep, prob, float("-inf"))
+        fn = lambda: cuda_decode.decode_pose(prob, loc, vh, vw)  # noqa: E731
+        ms, library_ms = _alternating_ms((fn, lambda: torch.max(masked.flatten(2), 2)), it)
+        rec = dict(ms=ms, library_ms=library_ms,
+                   plain_ms=_events_ms(lambda: decode_pose_batch(prob, loc, valid_hw=valid), 100),
+                   bound_ms=_bound_ms(n * J * h * w * 4 + n * J * 2 * 4 + n * 5 * J * 4))
+        dev = _kernel_device_us(f"decode prob entry at {shape}", fn, 50, rec["bound_ms"],
+                                match="decode_prob_kernel")
+        lib_dev = _kernel_device_us(f"torch.max at {shape}", lambda: torch.max(masked.flatten(2), 2),
+                                    50, rec["bound_ms"])
+        sizes = []   # the design's cluster size against 16, in turns: the spread shows
+        for cluster in (8, 16, 16, 8):
+            cuda_decode.prob_cluster = cluster
+            try:
+                sizes.append(f"{cluster} blocks: "
+                             + _kernel_device_us(f"decode prob entry at {shape}, cluster "
+                                                 f"{cluster}", fn, 50, rec["bound_ms"],
+                                                 match="decode_prob_kernel"))
+            finally:
+                cuda_decode.prob_cluster = 0
+        log(f"time [{card}]: decode prob entry at {shape} ({what}): {rec['ms'] * 1000:.2f} us "
+            f"per call (CUDA events, the median of {ROUNDS} runs of {it} calls taken in turns "
+            f"with torch.max's), device time {dev}, plain PyTorch "
+            f"{rec['plain_ms'] * 1000:.2f} us, torch.max over the masked map "
+            f"{rec['library_ms'] * 1000:.2f} us (device time {lib_dev}), bound "
+            f"{rec['bound_ms'] * 1000:.3f} us; "
+            f"clusters forced to " + "; ".join(sizes))
+        records[shape] = rec
+    return records
+
+
+ROUNDS = 5
+
+
+def _alternating_ms(fns, iters: int, rounds: int = ROUNDS) -> list:
+    """The median over `rounds` of each fn's CUDA-event ms per call over
+    `iters` calls, the fns timed in turns (forward, then backward order),
+    so that a drift of the host's speed falls on each alike."""
+    times = [[] for _ in fns]
+    for r in range(rounds):
+        order = list(enumerate(fns))
+        for k, fn in (order if r % 2 == 0 else order[::-1]):
+            times[k].append(_events_ms(fn, iters))
+    return [float(np.median(t)) for t in times]
+
+
+def path_times(est, card: str) -> None:
+    """The paths the probability-map entry lies on, bf16: estimate_pose on a
+    720x1280 frame (the tiled path) and estimate_pose_avg at PYRAMID_SCALES
+    on a 688x688 frame, each's wall (CUDA events), device busy, idle share
+    and kernels per call; then the profiler's kernels per `_decode_whole`
+    call on each path's own maps, which must be the prob entry alone."""
+    rng = np.random.RandomState(SEED + 13)
+    hd, f688 = frame(rng, 720, 1280), frame(rng, 688, 688)
+    paths = ((f"estimate_pose 720x1280 frame (the tiled path, max_size {est.max_size})",
+              lambda: est.estimate_pose(hd)),
+             (f"estimate_pose_avg 688x688 frame, scales {PYRAMID_SCALES}",
+              lambda: est.estimate_pose_avg(f688, PYRAMID_SCALES)))
+    with decoded_wholes(est) as decoded:
+        for _, fn in paths:
+            fn()
+    for what, fn in paths:
+        _profiled(card, f"{what}, bf16", fn, bs=1, iters=10, steps=3, top=4)
+    for (prob, loc, scale, _, _), (what, _) in zip(decoded, paths):
+        kernels = _device_kernels(lambda: est._decode_whole(prob, loc, scale), steps=20)
+        log(f"profile [{card}]: {what}: its _decode_whole of maps {tuple(prob.shape)} issues "
+            f"{kernels} device kernels per call (copies apart)")
+        if len(kernels) != 1 or "decode_prob_kernel" not in next(iter(kernels)) \
+                or next(iter(kernels.values())) != 1:
+            raise AssertionError(f"{what}: _decode_whole is not one launch of the prob entry: "
+                                 f"{kernels}")
+
+
+def _device_kernels(fn, steps: int) -> dict:
+    """{kernel name: launches per call of `fn`} from torch.profiler over
+    `steps` calls after as many warm-up calls under the profiler (the
+    tracer's first cycle can drop a kernel), the device's copies and fills
+    (Memcpy, Memset) and the profiler's step ranges apart."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return {e.key: e.count / steps for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset", "ProfilerStep"))}
 
 
 def _kernel_device_us(name: str, fn, steps: int, bound_ms: float, match: str = "") -> str:
@@ -3765,6 +4003,7 @@ def int8_kernel_times(card: str) -> dict:
 
 def phase_times(est, est8, rng, card: str) -> dict:
     serving_times(est, rng, card)
+    path_times(est, card)
     serving_times(est8, rng, card, label="int8")
     return {**kernel_times(card), **int8_kernel_times(card)}
 
@@ -3913,9 +4152,10 @@ def _record_geometries(on: bool):
     what was recorded until then."""
     from deepcut_tpu_torch.ops import conv_epilogue, int8_conv
 
-    recorded = (conv_epilogue.geometries, int8_conv.geometries)
+    recorded = (conv_epilogue.geometries, int8_conv.geometries, cuda_decode.geometries)
     conv_epilogue.record_geometries(on)
     int8_conv.record_geometries(on)
+    cuda_decode.record_geometries(on)
     return recorded
 
 
@@ -3993,10 +4233,13 @@ def main() -> int:
     phase_train_times(card)
     log(f"profiler checks: {len(PROFILER_FLAGS)} readings flagged"
         + "".join(f"\n  flagged: {f}" for f in PROFILER_FLAGS))
+    paths = {"serving": serving, "int8 serving": int8, "training": training, "graph engine": graph,
+             "data slice": data, "MatCaffe + data-parallel": matcaffe_dp, "spatial": spatial,
+             "engine training": engine}
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": (serving[name] + int8[name] + training[name] + graph[name] + data[name]
-                      + matcaffe_dp[name] + spatial[name] + engine[name]),
+         "launches": sum(counts[name] for counts in paths.values()),
+         "launches_per_path": {path: counts[name] for path, counts in paths.items()},
          "max_abs_err": errs[name],
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",

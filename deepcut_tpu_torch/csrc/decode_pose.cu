@@ -9,8 +9,10 @@
 //   host-to-device copies of the valid sizes that surrounded the first
 //   kernel.
 // - decode_pose_launch, for paths that already hold probability maps
-//   (scoremaps(), the tiled HD path, averaged pyramids): (N, J, h, w) f32
-//   prob and (N, 2J, h, w) f32 loc, one block per (image, joint).
+//   (scoremaps(), the tiled HD path, averaged pyramids, every frame under a
+//   mesh): (N, J, h, w) f32 prob and (N, 2J, h, w) f32 loc, read in place as
+//   strided views (column stride 1), one thread-block cluster per (image,
+//   joint) plane, the valid sizes and the scale by value.
 //
 // Replaces the TPU kernel deepcut_tpu/ops/pallas_decode.py:30-78
 // (_argmax_kernel launched by joint_argmax, wrapped by decode_pose_pallas)
@@ -58,6 +60,49 @@
 //   cell;
 // - the valid sizes, strides and scale arrive by value in the kernel's
 //   parameters (FusedArgs), so nothing is copied to the card per call.
+//
+// Bound (probability-map entry): bytes. It needs each valid cell's
+// probability once (at one image's (14, 90, 160) grid, 806 KB: 0.24 us at
+// 3.35 TB/s; (14, 136, 240), 1.83 MB: 0.55 us), two loc values per joint
+// and the N*5*J floats of the pose; one compare per cell. At these sizes
+// the launch, one round of loads, the reductions and one cluster barrier
+// set the time (a few microseconds), not the bytes: the design keeps the
+// dependent steps few.
+//
+// Design (probability-map entry), against the first kernel's one
+// 256-thread block per plane (14 blocks on 132 SMs at batch 1; an integer
+// divide, a scalar load and a select per cell; the valid sizes read from
+// device memory):
+// - one thread-block CLUSTER of kProbCluster = 8 blocks per (image, joint)
+//   plane: 112 blocks of 128 threads at J = 14 and batch 1. The grid is
+//   (cluster, J, N); at N = 4, 448 blocks still fit the card at once, and
+//   where N*J clusters exceed what it holds, the rest start as earlier
+//   clusters leave (every plane is independent: only the time grows).
+//   Clusters of 16 (non-portable) won at no path shape on the card by
+//   more than two readings of one size differ (chip_smoke.py times both
+//   sizes); 8 is portable and needs no probe. Each block takes a band of
+//   the plane's valid rows;
+// - a 2-D walk: the band is rows x vectors of G floats (G = 4, 2 or 1: the
+//   widest load that the view's width and strides allow, from the wrapper,
+//   halved at the launch until the base is aligned), thread t starts at
+//   vector t and steps kProbThreads vectors by a fixed (rows, vectors)
+//   increment, so no integer divide is spent per cell; neighbouring threads
+//   read neighbouring vectors of a row (coalesced), each thread issues
+//   kUnroll loads before it compares any (at the paths' shapes a thread
+//   reads at most 8 vectors, in one or two rounds).
+//   Rows at or past the valid height and vectors wholly past the valid
+//   width are never read; the columns of a row's last vector past it are
+//   read and skipped;
+// - each thread keeps one running (value, index) pair; a warp meets in
+//   shuffles, the block's warps in shared memory, and every block writes
+//   its pair into block 0's shared memory (map_shared_rank); after one
+//   cluster barrier block 0's first warp reduces them in shuffles, gathers
+//   the two loc values at the argmax and writes the pose while the others
+//   have left;
+// - the valid sizes, the element strides of image, joint and row of prob
+//   and of loc, and the scale arrive by value (ProbArgs): nothing is copied
+//   to the card per call, and a row-cropped or channel-sliced view is read
+//   where it lies.
 
 #include <climits>
 #include <cmath>
@@ -69,8 +114,10 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kProbThreads = 128;
+constexpr int kProbWarps = kProbThreads / 32;
+constexpr int kUnroll = 4;       // vectors a thread loads before it compares any
+constexpr int kProbCluster = 8;  // blocks per (image, joint) plane
 constexpr float kStride = 8.0f;
 constexpr float kHalfStride = 4.0f;
 constexpr float kLocrefScale = 7.2801098892805181f;  // sqrt(53)
@@ -80,7 +127,7 @@ constexpr int kFusedWarps = kFusedThreads / 32;
 constexpr int kMaxJoints = 16;   // joint lanes of a fused block: thread = (cell group, joint)
 constexpr int kCellGroups = kFusedThreads / kMaxJoints;
 constexpr int kMaxCluster = 16;
-constexpr int kMaxBatch = 64;    // images per fused launch (FusedArgs capacity)
+constexpr int kMaxBatch = 64;    // images per launch (FusedArgs / ProbArgs capacity)
 constexpr int kStageFloats = 51200;  // at most 200 KB of staged logits per block
 
 struct FusedArgs {
@@ -89,6 +136,15 @@ struct FusedArgs {
   int n, J, h, w, C;
   int granule;       // floats per staging copy: 4, 2 or 1 (16, 8 or 4 bytes)
   int stage_floats;  // the dynamic shared memory, in floats (>= one row)
+  float scale;
+  int vh[kMaxBatch];
+  int vw[kMaxBatch];
+};
+
+struct ProbArgs {
+  long long pn, pj, ph;  // prob's element strides of image, joint and row; column stride 1
+  long long ln, lj, lh;  // loc's
+  int n, J, h, w;
   float scale;
   int vh[kMaxBatch];
   int vw[kMaxBatch];
@@ -266,58 +322,129 @@ decode_fused_kernel(const float* __restrict__ fused, float* __restrict__ out,
 }
 
 // ---------------------------------------------------------------------------
-// Probability-map entry: one block per (image, joint)
+// Probability-map entry: one cluster per (image, joint) plane
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-decode_pose_kernel(const float* __restrict__ prob, const float* __restrict__ loc,
-                   const int* __restrict__ vh, const int* __restrict__ vw,
-                   float* __restrict__ out, int J, int h, int w, float scale) {
-  const int j = blockIdx.x;
-  const int n = blockIdx.y;
-  const int P = h * w;
-  const float* map = prob + (static_cast<size_t>(n) * J + j) * P;
-  const int rows = vh[n];
-  const int cols = vw[n];
+// G consecutive floats of a row at p (aligned to 4G bytes) into o.
+template <int G>
+__device__ __forceinline__ void load_vec(const float* p, float* o) {
+  if constexpr (G == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    o[0] = t.x;
+    o[1] = t.y;
+    o[2] = t.z;
+    o[3] = t.w;
+  } else if constexpr (G == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    o[0] = t.x;
+    o[1] = t.y;
+  } else {
+    o[0] = __ldg(p);
+  }
+}
 
+template <int G>
+__global__ void __launch_bounds__(kProbThreads)
+decode_prob_kernel(const float* __restrict__ prob, const float* __restrict__ loc,
+                   float* __restrict__ out, const __grid_constant__ ProbArgs a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int j = blockIdx.y;
+  const int n = blockIdx.z;
+  const int w = a.w;
+  const int vh = min(max(a.vh[n], 0), a.h);
+  const int vw = min(max(a.vw[n], 0), w);
+  const float* plane = prob + n * a.pn + j * a.pj;
+
+  __shared__ float s_val[kProbWarps];
+  __shared__ int s_idx[kProbWarps];
+  __shared__ float g_val[kMaxCluster];  // block 0: every block's pair
+  __shared__ int g_idx[kMaxCluster];
+
+  // this block's band of valid rows; q vectors of G floats cover a valid row
+  const int r_begin = static_cast<int>(static_cast<long long>(vh) * rank / ranks);
+  const int rows = static_cast<int>(static_cast<long long>(vh) * (rank + 1) / ranks) - r_begin;
+  const int q = (vw + G - 1) / G;
   float bv = -INFINITY;
-  int bi = INT_MAX;
-  for (int p = threadIdx.x; p < P; p += kThreads) {
-    const int r = p / w;
-    const int c = p - r * w;
-    const float v = (r < rows && c < cols) ? map[p] : -INFINITY;
-    if (better(v, p, bv, bi)) {
-      bv = v;
-      bi = p;
+  int bi = INT_MAX;  // loses every tie, so the first cell always replaces the start
+  if (q > 0) {
+    // vector t of the band is (row k, vector c); a step of kProbThreads
+    // vectors is dk rows and dc vectors (one divide per thread)
+    int k = threadIdx.x / q;
+    int c = threadIdx.x - k * q;
+    const int dk = kProbThreads / q;
+    const int dc = kProbThreads - dk * q;
+    while (k < rows) {
+      float v[kUnroll][G];
+      int kk[kUnroll], cc[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        kk[u] = k;
+        cc[u] = c * G;
+        if (k < rows) load_vec<G>(plane + (r_begin + k) * a.ph + c * G, v[u]);
+        k += dk;
+        c += dc;
+        if (c >= q) {
+          c -= q;
+          ++k;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (kk[u] >= rows) break;
+        const int base = (r_begin + kk[u]) * w + cc[u];
+#pragma unroll
+        for (int e = 0; e < G; ++e) {
+          if (cc[u] + e < vw && better(v[u][e], base + e, bv, bi)) {
+            bv = v[u][e];
+            bi = base + e;
+          }
+        }
+      }
     }
   }
-  warp_reduce(bv, bi);
 
-  __shared__ float s_val[kWarps];
-  __shared__ int s_idx[kWarps];
+  // warp, then the block's warps, then block 0 over the cluster
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  warp_reduce(bv, bi);
   if (lane == 0) {
     s_val[warp] = bv;
     s_idx[warp] = bi;
   }
   __syncthreads();
-  if (warp != 0) return;
-  bv = lane < kWarps ? s_val[lane] : -INFINITY;
-  bi = lane < kWarps ? s_idx[lane] : INT_MAX;
-  warp_reduce(bv, bi);
-  if (lane != 0) return;
+  if (warp == 0) {
+    bv = lane < kProbWarps ? s_val[lane] : -INFINITY;
+    bi = lane < kProbWarps ? s_idx[lane] : INT_MAX;
+    warp_reduce(bv, bi);
+    if (lane == 0) {
+      *cluster.map_shared_rank(&g_val[rank], 0) = bv;
+      *cluster.map_shared_rank(&g_idx[rank], 0) = bi;
+    }
+  }
+  cluster.sync();  // every block's pair is in block 0
+  if (rank != 0 || warp != 0) return;
 
-  const float* lj = loc + (static_cast<size_t>(n) * 2 * J + 2 * j) * P;
-  write_pose(out + static_cast<size_t>(n) * 5 * J + j, J, bi, bv, w, lj[bi], lj[P + bi], scale);
+  // lane r takes block r's pair; one warp reduction gives the plane's
+  float v = lane < ranks ? g_val[lane] : -INFINITY;
+  int i = lane < ranks ? g_idx[lane] : INT_MAX;
+  warp_reduce(v, i);
+  if (lane != 0) return;
+  if (i == INT_MAX) i = 0;  // no valid cell: the plain version's argmax of all -inf
+  const int row = i / w;
+  const int col = i - row * w;
+  const float* at = loc + n * a.ln + 2LL * j * a.lj + row * a.lh + col;
+  write_pose(out + static_cast<long long>(n) * 5 * a.J + j, a.J, i, v, w, at[0], at[a.lj],
+             a.scale);
 }
 
-// The cluster size the fused entry launches with: 16 blocks (a non-portable
-// size) where the card can place such a cluster of this kernel, else 8.
+// The fused entry's cluster: 16 blocks (a non-portable size) where the card
+// can place such a cluster of it, else the portable 8.
 int fused_cluster_size() {
   static int size = 0;
   if (size != 0) return size;
-  size = 8;  // the portable cluster size
+  size = 8;
   if (cudaFuncSetAttribute(decode_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            kStageFloats * static_cast<int>(sizeof(float))) != cudaSuccess ||
       cudaFuncSetAttribute(decode_fused_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
@@ -345,14 +472,22 @@ int fused_cluster_size() {
   return size;
 }
 
+using ProbKernel = void (*)(const float*, const float*, float*, ProbArgs);
+
+ProbKernel prob_kernel(int granule) {
+  return granule == 4 ? decode_prob_kernel<4>
+                      : (granule == 2 ? decode_prob_kernel<2> : decode_prob_kernel<1>);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Both entries launch on `stream` of `device` and return cudaGetLastError()
-// (0 when the launch was accepted). The caller checks shapes and layouts.
+// Both entries launch on `stream` of the map's device and return
+// cudaGetLastError() (0 when every launch was accepted). The caller checks
+// shapes and layouts.
 
-int decode_fused_max_batch() { return kMaxBatch; }
+int decode_max_batch() { return kMaxBatch; }
 int decode_fused_max_joints() { return kMaxJoints; }
 int decode_fused_stage_floats() { return kStageFloats; }
 
@@ -403,13 +538,67 @@ int decode_fused_launch(const float* fused, float* out, long long sn, long long 
   return static_cast<int>(cudaGetLastError());
 }
 
-int decode_pose_launch(const float* prob, const float* loc, const int* vh, const int* vw,
-                       float* out, int n, int J, int h, int w, float scale, int device,
-                       cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
+int decode_pose_cluster() { return kProbCluster; }
+
+// A probability-map view's geometry, checked and built once per geometry by
+// the caller (ops/cuda_decode.py mirrors it as a ctypes Structure).
+struct ProbGeometry {
+  long long pn, pj, ph;  // prob's element strides of image, joint and row
+  long long ln, lj, lh;  // loc's
+  int n, J, h, w;
+  int granule;           // the widest load (4, 2 or 1 floats) the width and strides allow
+  int device;
+};
+
+// sizes: the n valid rows, then the n valid columns. Launches once per
+// kMaxBatch images; `cluster` 0 takes kProbCluster, 1-16 another size (for
+// measurements).
+int decode_pose_launch(const ProbGeometry* g, const float* prob, const float* loc, float* out,
+                       const int* sizes, float scale, int cluster, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(g->device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(J, n);
-  decode_pose_kernel<<<grid, kThreads, 0, stream>>>(prob, loc, vh, vw, out, J, h, w, scale);
+  int granule = g->granule;  // and the base's alignment
+  while (reinterpret_cast<unsigned long long>(prob) % (4 * granule) != 0) granule /= 2;
+  const ProbKernel kernel = prob_kernel(granule);
+  const int cs = cluster > 0 && cluster <= kMaxCluster ? cluster : kProbCluster;
+  if (cs > 8) {  // a non-portable size
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  for (int i = 0; i < g->n; i += kMaxBatch) {
+    const int m = g->n - i < kMaxBatch ? g->n - i : kMaxBatch;
+    ProbArgs a = {};
+    a.pn = g->pn;
+    a.pj = g->pj;
+    a.ph = g->ph;
+    a.ln = g->ln;
+    a.lj = g->lj;
+    a.lh = g->lh;
+    a.n = m;
+    a.J = g->J;
+    a.h = g->h;
+    a.w = g->w;
+    a.scale = scale;
+    for (int k = 0; k < m; ++k) {
+      a.vh[k] = sizes[i + k];
+      a.vw[k] = sizes[g->n + i + k];
+    }
+    cudaLaunchConfig_t config = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cs;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.gridDim = dim3(cs, g->J, m);
+    config.blockDim = dim3(kProbThreads, 1, 1);
+    config.dynamicSmemBytes = 0;
+    config.stream = stream;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    err = cudaLaunchKernelEx(&config, kernel, prob + i * g->pn, loc + i * g->ln,
+                             out + static_cast<long long>(i) * 5 * g->J, a);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

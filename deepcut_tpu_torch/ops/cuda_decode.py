@@ -9,8 +9,11 @@ there), has two entries:
   sliced, computes the sigmoid of the pose logits itself and takes the
   valid cell rows / columns as Python ints, passed by value: the serving
   path (`PoseEstimator._batched`);
-- `decode_pose` reads f32 probability and locref maps, for the paths that
-  hold them (`scoremaps`, the tiled HD path, averaged pyramids).
+- `decode_pose` reads f32 probability and locref maps where they lie (a
+  row-cropped or channel-sliced view, any strides but a column stride of
+  1) and takes the valid sizes as Python ints, passed by value: the paths
+  that hold such maps (`scoremaps`, the tiled HD path, averaged pyramids,
+  every frame under a mesh), through `PoseEstimator._decode_whole`.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` at the first launch
 (`native.build`); importing this module builds nothing. A CPU tensor takes
@@ -22,30 +25,42 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 
 from deepcut_tpu_torch.native import PKG, NativeLib, build
+from deepcut_tpu_torch.ops.conv_epilogue import view_geometry
 from deepcut_tpu_torch.pose.decode import decode_pose_batch
 
 LIB = NativeLib(PKG / "csrc" / "decode_pose.cu")
 
 launches = 0       # fused-entry launches since the last reset (CPU calls do not count)
 prob_launches = 0  # probability-map entry launches, likewise
+# while a dict (`record_geometries`): each distinct launch geometry of the
+# probability-map entry (prob's and loc's views, the valid sizes) -> the
+# first call's scale, so that a caller can replay every geometry a path
+# gave the kernel against its plain version
+geometries: Optional[Dict[tuple, tuple]] = None
+# the probability-map entry's blocks per plane: 0 takes the kernel's own
+# (kProbCluster); a measurement may set 1-16
+prob_cluster = 0
+_plans: Dict[tuple, tuple] = {}  # the prob entry's checked launch arguments per geometry
 _lock = threading.Lock()
 _lib = None
-_caps = None  # the fused entry's (images, joints, staged floats) per launch, read once
+_caps = None  # images per launch, the fused entry's joints and staged floats; read once
 
 
 def _library() -> ctypes.CDLL:
     global _lib, _caps
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build(LIB)[0]))
             fn = lib.decode_pose_launch
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            fn.argtypes = ([ctypes.POINTER(_Geometry)] + [ctypes.c_void_p] * 4
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             fn = lib.decode_fused_launch
             fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 6
@@ -53,19 +68,28 @@ def _library() -> ctypes.CDLL:
                            + [ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             lib.decode_fused_cluster_size.argtypes = [ctypes.c_int]
-            _caps = (lib.decode_fused_max_batch(), lib.decode_fused_max_joints(),
+            _caps = (lib.decode_max_batch(), lib.decode_fused_max_joints(),
                      lib.decode_fused_stage_floats())
             _lib = lib
     return _lib
 
 
+def record_geometries(on: bool = True) -> None:
+    """Start (afresh) or stop recording the probability-map entry's launch
+    geometries (`geometries`)."""
+    global geometries
+    with _lock:
+        geometries = {} if on else None
+
+
 def fused_limits() -> dict:
-    """The fused entry's capacities, read from the library: images per
-    launch, joints, staged floats per row, and the cluster size it launches
-    with on the current device."""
+    """The kernel's capacities, read from the library: images per launch,
+    the fused entry's joints and staged floats per row, and the cluster
+    sizes both entries launch with on the current device."""
     lib = _library()
     return {"max_batch": _caps[0], "max_joints": _caps[1], "stage_floats": _caps[2],
-            "cluster": lib.decode_fused_cluster_size(torch.cuda.current_device())}
+            "cluster": lib.decode_fused_cluster_size(torch.cuda.current_device()),
+            "prob_cluster": lib.decode_pose_cluster()}
 
 
 def decode_fused_plain(fused: torch.Tensor, num_joints: int, valid_h: Sequence[int],
@@ -119,8 +143,27 @@ def decode_fused(fused: torch.Tensor, num_joints: int, valid_h: Sequence[int],
     return out
 
 
-def _check(prob: torch.Tensor, loc: torch.Tensor, valid_h: torch.Tensor,
-           valid_w: torch.Tensor) -> None:
+Sizes = Union[Sequence[int], torch.Tensor]
+
+
+def _sizes(name: str, valid: Sizes, n: int) -> List[int]:
+    """Each image's valid rows (or columns) as ints, from a sequence of ints
+    or a CPU tensor (a CUDA tensor would have to be read on the host,
+    waiting for the card)."""
+    if isinstance(valid, torch.Tensor):
+        if valid.device.type != "cpu":
+            raise ValueError(f"decode_pose: {name} must be ints or a CPU tensor, got a tensor "
+                             f"on {valid.device}")
+        valid = valid.reshape(-1).tolist()
+    out = [int(v) for v in valid]
+    if len(out) != n:
+        raise ValueError(f"decode_pose: {len(out)} {name} sizes for {n} images")
+    return out
+
+
+def _check(prob: torch.Tensor, loc: torch.Tensor) -> None:
+    """Raises on what the kernel does not take; a view it takes is read in
+    place (any non-negative strides, a column stride of 1)."""
     if prob.dim() != 4 or loc.dim() != 4:
         raise ValueError(f"decode_pose: prob and loc must be 4-D, got "
                          f"{tuple(prob.shape)} and {tuple(loc.shape)}")
@@ -128,41 +171,74 @@ def _check(prob: torch.Tensor, loc: torch.Tensor, valid_h: torch.Tensor,
     if tuple(loc.shape) != (n, 2 * J, h, w):
         raise ValueError(f"decode_pose: loc {tuple(loc.shape)} does not match "
                          f"prob {tuple(prob.shape)} (want {(n, 2 * J, h, w)})")
-    if n < 1 or J < 1 or h * w < 1 or n > 65535 or h * w >= 2**31:
+    if n < 1 or not 1 <= J <= 65535 or h * w < 1 or h * w >= 2**31:
         raise ValueError(f"decode_pose: unsupported shape {tuple(prob.shape)}")
-    for name, t, dtype, shape in (("prob", prob, torch.float32, None),
-                                  ("loc", loc, torch.float32, None),
-                                  ("valid_h", valid_h, torch.int32, (n,)),
-                                  ("valid_w", valid_w, torch.int32, (n,))):
+    for name, t in (("prob", prob), ("loc", loc)):
         if t.device != prob.device:
             raise ValueError(f"decode_pose: {name} on {t.device}, prob on {prob.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"decode_pose: {name} must be {dtype}, got {t.dtype}")
-        if shape is not None and tuple(t.shape) != shape:
-            raise ValueError(f"decode_pose: {name} must have shape {shape}, got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"decode_pose: {name} must be contiguous")
+        if t.dtype != torch.float32:
+            raise TypeError(f"decode_pose: {name} must be {torch.float32}, got {t.dtype}")
+        if w > 1 and t.stride(3) != 1:
+            raise ValueError(f"decode_pose: {name} must have a column stride of 1 (rows are "
+                             f"read as runs of floats), got strides {t.stride()}")
 
 
-def decode_pose(prob: torch.Tensor, loc: torch.Tensor, valid_h: torch.Tensor,
-                valid_w: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
-    """(N, J, h, w) f32 prob + (N, 2J, h, w) f32 loc + (N,) int32 valid
-    rows / columns of each cell grid -> (N, 5, J) f32 pose, x, y and the
-    offsets divided by `scale`. See `pose.decode` for the semantics."""
-    global prob_launches
-    if prob.device.type == "cpu":
-        return decode_pose_batch(prob, loc, scale=scale, valid_hw=(valid_h, valid_w))
-    if prob.device.type != "cuda":
-        raise ValueError(f"decode_pose: no kernel for device {prob.device}")
-    _check(prob, loc, valid_h, valid_w)
+class _Geometry(ctypes.Structure):
+    """The kernel's ProbGeometry: a checked (prob, loc) view geometry."""
+    _fields_ = ([(f, ctypes.c_longlong) for f in ("pn", "pj", "ph", "ln", "lj", "lh")]
+                + [(f, ctypes.c_int) for f in ("n", "J", "h", "w", "granule", "device")])
+
+
+def _plan(prob: torch.Tensor, loc: torch.Tensor) -> tuple:
+    """A (prob, loc) view geometry, checked once: the kernel's geometry
+    (with the widest load, 4, 2 or 1 floats, that the view's width and
+    strides allow; the launch halves it until the base address is aligned)
+    and a pointer to it."""
+    _check(prob, loc)
     n, J, h, w = prob.shape
-    fn = _library().decode_pose_launch
-    out = torch.empty((n, 5, J), dtype=torch.float32, device=prob.device)
-    stream = torch.cuda.current_stream(prob.device).cuda_stream
-    err = fn(prob.data_ptr(), loc.data_ptr(), valid_h.data_ptr(), valid_w.data_ptr(),
-             out.data_ptr(), n, J, h, w, float(scale), prob.device.index, stream)
+    strides = [s for s, d in zip(prob.stride()[:3], (n, J, h)) if d > 1]
+    widest = next(g for g in (4, 2, 1) if w % g == 0 and all(s % g == 0 for s in strides))
+    geometry = _Geometry(*prob.stride()[:3], *loc.stride()[:3], n, J, h, w, widest,
+                         prob.device.index or 0)
+    return geometry, ctypes.pointer(geometry)
+
+
+def decode_pose(prob: torch.Tensor, loc: torch.Tensor, valid_h: Sizes, valid_w: Sizes,
+                scale: float = 1.0) -> torch.Tensor:
+    """(N, J, h, w) f32 prob + (N, 2J, h, w) f32 loc + each image's valid
+    rows / columns of the cell grid (ints, or CPU tensors) -> (N, 5, J) f32
+    pose, x, y and the offsets divided by `scale`. See `pose.decode` for the
+    semantics. On the card prob and loc may be views (row-cropped, channel
+    sliced, permuted) whose column stride is 1; they are read in place."""
+    global prob_launches
+    if not prob.is_cuda:
+        if prob.device.type == "cpu":
+            vh, vw = (v if isinstance(v, torch.Tensor) else torch.tensor([int(x) for x in v])
+                      for v in (valid_h, valid_w))
+            return decode_pose_batch(prob, loc, scale=scale, valid_hw=(vh, vw))
+        _check(prob, loc)
+        raise ValueError(f"decode_pose: no kernel for device {prob.device}")
+    # checked once per view geometry: a path repeats a few
+    key = (prob.shape, prob.stride(), loc.shape, loc.stride(), prob.dtype, loc.dtype,
+           prob.device, loc.device)
+    plan = _plans.get(key)
+    if plan is None:
+        if len(_plans) >= 4096:   # frames of ever new sizes: start afresh
+            _plans.clear()
+        plan = _plans.setdefault(key, _plan(prob, loc))
+    geometry, ref = plan
+    n = geometry.n
+    vh, vw = _sizes("valid_h", valid_h, n), _sizes("valid_w", valid_w, n)
+    lib = _library()
+    out = torch.empty((n, 5, geometry.J), dtype=torch.float32, device=prob.device)
+    err = lib.decode_pose_launch(ref, prob.data_ptr(), loc.data_ptr(), out.data_ptr(),
+                                 (ctypes.c_int * (2 * n))(*vh, *vw), float(scale), prob_cluster,
+                                 torch._C._cuda_getCurrentRawStream(geometry.device))
     if err != 0:
         raise RuntimeError(f"decode_pose kernel launch failed: cudaError {err}")
     with _lock:
-        prob_launches += 1
+        prob_launches += -(-n // _caps[0])   # one launch per kMaxBatch images
+        if geometries is not None:
+            geometries.setdefault((view_geometry(prob), view_geometry(loc), tuple(vh),
+                                   tuple(vw)), (float(scale),))
     return out

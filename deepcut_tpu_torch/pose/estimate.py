@@ -253,12 +253,12 @@ class PoseEstimator:
         return outs["prob"], outs["loc_pred"]
 
     def _decode_whole(self, prob: torch.Tensor, loc: torch.Tensor, scale: float) -> np.ndarray:
-        """Unmasked decode of one image's (J, h, w) / (2J, h, w) maps -> (5, J)."""
+        """Unmasked decode of one image's (J, h, w) / (2J, h, w) maps -> (5, J):
+        the decode's probability-map entry reads the views where they lie
+        (a row-cropped map, the pyramid's average), their sizes passed by
+        value, so on the card this is one kernel launch."""
         h, w = prob.shape[1:]
-        pose = cuda_decode.decode_pose(
-            prob[None].contiguous(), loc[None].contiguous(),
-            torch.full((1,), h, dtype=torch.int32, device=self.device),
-            torch.full((1,), w, dtype=torch.int32, device=self.device), scale)
+        pose = cuda_decode.decode_pose(prob[None], loc[None], [h], [w], scale)
         return pose[0].cpu().numpy()
 
     def _batched(self, canvases: torch.Tensor, valid_h: Sequence[int],
