@@ -199,7 +199,9 @@ PROB_SHAPES = [((1, J, 86, 86), "a 688 frame's scoremaps, or a 688 frame under a
                ((1, J, 90, 160), "the tiled HD path's 720x1280 frame (phase 4)"),
                ((1, J, 136, 240), "a 1088x1920 frame under a mesh (S3)"),
                ((4, J, 88, 88), "batch 4 on the 704 bucket's grid")]
-PROB_RECORD_SHAPE = (1, J, 90, 160)   # the JSON record's: the tiled HD path's decode
+# The JSON record's: the shape of the earlier readings, so that its series
+# compares (each record states its shape; the paths' shapes are logged).
+PROB_RECORD_SHAPE = (4, J, 88, 88)
 PYRAMID_SCALES = (0.8, 1.0, 1.2)      # estimate_pose_avg's scales in phases 4 and 6
 # The fused decode's (n, h, w, channels beyond 3J): the serving path's 88 x 88
 # grid (704 canvas) at batch 1 and 4 (8-byte copies), a large grid with an
@@ -2425,7 +2427,7 @@ def data_times(d: dict, card: str) -> None:
             src.next_batch()
         host[what] = (time.perf_counter() - t0) * 1000 / 3
     batches = _forwards(Net(str(d["net"]), weights=str(d["weights"]), phase="TEST", device="cuda"),
-                        1 + DATA_TEST_ITERATIONS + 2)
+                        1 + DATA_TEST_ITERATIONS + 4)   # the profile's 2 + 2
     next(batches)   # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3707,18 +3709,29 @@ def _graph_device_ms(fn, replays: int = 5):
     return start.elapsed_time(end) / replays
 
 
-def _device_profile(fn, steps: int, top: int = 0):
-    """(device ms, device ops, the `top` kernels by device ms) per call of
-    `fn`, from torch.profiler's per-kernel self device time."""
-    from torch.profiler import ProfilerActivity, profile
+def _device_profile(fn, steps: int, top: int = 0, copies: bool = True):
+    """(device ms, device ops, the `top` kernels by device ms with their
+    launches) per call of `fn`, from torch.profiler's per-kernel self device
+    time over `steps` calls after as many warm-up calls under the profiler;
+    with `copies` False the device's copies and fills (Memcpy, Memset) are
+    left out. The tracer still drops a window's launches now and then (some
+    or all of them; without the warm-up more often, at a window's start),
+    so a total per call may read low: `_kernel_device_us` divides by the
+    launches it recorded, and a window that lost some is read again where
+    a count must be exact."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    skip = ("ProfilerStep",) if copies else ("ProfilerStep", "Memcpy", "Memset")
     torch.cuda.synchronize()  # no earlier work inside the window
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith(skip)]
     busy = sum(e.self_device_time_total for e in events) / 1000.0
     ranked = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
     return (busy / steps, sum(e.count for e in events) / steps,
@@ -3781,7 +3794,8 @@ def kernel_times(card: str) -> dict:
     plain_ms = _events_ms(lambda: cuda_decode.decode_fused_plain(fused, J, vh, vw), it)
     library_ms = _events_ms(lambda: torch.max(masked.flatten(2), 2), it)
     cells = n * J * h * w
-    out = {"decode_pose": dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+    out = {"decode_pose": dict(shape=[n, 3 * J, h, w], ms=ms, plain_ms=plain_ms,
+                               library_ms=library_ms,
                                bound_ms=_bound_ms(cells * 4 + n * J * 2 * 4 + n * 5 * J * 4))}
     dev = _kernel_device_us("decode_pose", fn, 50, out["decode_pose"]["bound_ms"])
     log(f"time [{card}]: decode fused entry at {(n, 3 * J, h, w)}: {ms * 1000:.2f} us per call "
@@ -3795,7 +3809,7 @@ def kernel_times(card: str) -> dict:
     ms = _events_ms(lambda: conv_epilogue.conv_epilogue(y, bias, res, True), 200)
     plain_ms = _events_ms(lambda: conv_epilogue.conv_epilogue_plain(y, bias, res, True), 50)
     numel = y.numel()
-    out["conv_epilogue"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+    out["conv_epilogue"] = dict(shape=list(shape), ms=ms, plain_ms=plain_ms, library_ms=None,
                                 bound_ms=_bound_ms(numel * 4 * 3 + shape[1] * 4))
     dev = _kernel_device_us("conv_epilogue", lambda: conv_epilogue.conv_epilogue(y, bias, res, True),
                             50, out["conv_epilogue"]["bound_ms"])
@@ -3826,30 +3840,19 @@ def prob_entry_times(card: str) -> dict:
         masked = torch.where(keep, prob, float("-inf"))
         fn = lambda: cuda_decode.decode_pose(prob, loc, vh, vw)  # noqa: E731
         ms, library_ms = _alternating_ms((fn, lambda: torch.max(masked.flatten(2), 2)), it)
-        rec = dict(ms=ms, library_ms=library_ms,
+        rec = dict(shape=list(shape), ms=ms, library_ms=library_ms,
                    plain_ms=_events_ms(lambda: decode_pose_batch(prob, loc, valid_hw=valid), 100),
                    bound_ms=_bound_ms(n * J * h * w * 4 + n * J * 2 * 4 + n * 5 * J * 4))
         dev = _kernel_device_us(f"decode prob entry at {shape}", fn, 50, rec["bound_ms"],
                                 match="decode_prob_kernel")
         lib_dev = _kernel_device_us(f"torch.max at {shape}", lambda: torch.max(masked.flatten(2), 2),
                                     50, rec["bound_ms"])
-        sizes = []   # the design's cluster size against 16, in turns: the spread shows
-        for cluster in (8, 16, 16, 8):
-            cuda_decode.prob_cluster = cluster
-            try:
-                sizes.append(f"{cluster} blocks: "
-                             + _kernel_device_us(f"decode prob entry at {shape}, cluster "
-                                                 f"{cluster}", fn, 50, rec["bound_ms"],
-                                                 match="decode_prob_kernel"))
-            finally:
-                cuda_decode.prob_cluster = 0
         log(f"time [{card}]: decode prob entry at {shape} ({what}): {rec['ms'] * 1000:.2f} us "
             f"per call (CUDA events, the median of {ROUNDS} runs of {it} calls taken in turns "
             f"with torch.max's), device time {dev}, plain PyTorch "
             f"{rec['plain_ms'] * 1000:.2f} us, torch.max over the masked map "
             f"{rec['library_ms'] * 1000:.2f} us (device time {lib_dev}), bound "
-            f"{rec['bound_ms'] * 1000:.3f} us; "
-            f"clusters forced to " + "; ".join(sizes))
+            f"{rec['bound_ms'] * 1000:.3f} us")
         records[shape] = rec
     return records
 
@@ -3887,7 +3890,12 @@ def path_times(est, card: str) -> None:
     for what, fn in paths:
         _profiled(card, f"{what}, bf16", fn, bs=1, iters=10, steps=3, top=4)
     for (prob, loc, scale, _, _), (what, _) in zip(decoded, paths):
-        kernels = _device_kernels(lambda: est._decode_whole(prob, loc, scale), steps=20)
+        for _ in range(5):   # until a window keeps all its launches (see _device_profile)
+            _, _, ranked = _device_profile(lambda: est._decode_whole(prob, loc, scale), steps=20,
+                                           top=64, copies=False)
+            kernels = {name: n for name, _, n in ranked}
+            if sum(kernels.values()) >= 1:
+                break
         log(f"profile [{card}]: {what}: its _decode_whole of maps {tuple(prob.shape)} issues "
             f"{kernels} device kernels per call (copies apart)")
         if len(kernels) != 1 or "decode_prob_kernel" not in next(iter(kernels)) \
@@ -3896,38 +3904,24 @@ def path_times(est, card: str) -> None:
                                  f"{kernels}")
 
 
-def _device_kernels(fn, steps: int) -> dict:
-    """{kernel name: launches per call of `fn`} from torch.profiler over
-    `steps` calls after as many warm-up calls under the profiler (the
-    tracer's first cycle can drop a kernel), the device's copies and fills
-    (Memcpy, Memset) and the profiler's step ranges apart."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(2):
-            for _ in range(steps):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    return {e.key: e.count / steps for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith(("Memcpy", "Memset", "ProfilerStep"))}
-
-
 def _kernel_device_us(name: str, fn, steps: int, bound_ms: float, match: str = "") -> str:
-    """The device time per call of `fn`'s longest kernel (or its kernel
-    whose name holds `match`) from the profiler, as text, held against the
+    """The device time per launch of `fn`'s longest kernel (or its kernel
+    whose name holds `match`; each of these calls launches it once) from
+    the profiler, over the launches it recorded, as text, held against the
     kernel's byte bound: a reading under the bound, or a kernel the
     profiler did not record, is flagged (PROFILER_FLAGS) and rejected."""
-    _, _, ranked = _device_profile(fn, steps=steps, top=64)
-    hits = [(k, t) for k, t, _ in ranked if match in k]
-    if not hits:
+    for _ in range(3):   # a window the tracer dropped whole is read again
+        _, _, ranked = _device_profile(fn, steps=steps, top=64)
+        hits = [(k, t, n) for k, t, n in ranked if match in k]
+        if hits:
+            break
+    else:
         PROFILER_FLAGS.append(f"{name}: kernel not recorded by the profiler")
         return "not recorded by the profiler (flagged)"
-    kname, dev_ms = hits[0]
-    text = f"{dev_ms * 1000:.2f} us ({kname[:40]})"
+    kname, dev_ms, per_call = hits[0]
+    dev_ms /= per_call
+    text = f"{dev_ms * 1000:.2f} us ({kname[:40]}" + (
+        f"; {round(per_call * steps)} of {steps} launches recorded)" if per_call < 1 else ")")
     if dev_ms < bound_ms:
         PROFILER_FLAGS.append(f"{name}: profiler device time {dev_ms * 1000:.2f} us under its "
                               f"byte bound {bound_ms * 1000:.2f} us")
@@ -3935,19 +3929,19 @@ def _kernel_device_us(name: str, fn, steps: int, bound_ms: float, match: str = "
     return text
 
 
-def _timed(card: str, name: str, fn, plain, bound_ms: float, iters: int = 200,
+def _timed(card: str, name: str, shape, fn, plain, bound_ms: float, iters: int = 200,
            before=None, match: str = "") -> dict:
-    """A kernel's wrapper per call (CUDA events), its device time
-    (profiler; its kernel's name holds `match`) and its plain version's
-    time, logged beside its bound; `before` (an L2 flush) runs ahead of
-    each call, outside its events."""
+    """A kernel's wrapper per call (CUDA events) at `shape` (its input's),
+    its device time (profiler; its kernel's name holds `match`) and its
+    plain version's time, logged beside its bound; `before` (an L2 flush)
+    runs ahead of each call, outside its events."""
     ms = _events_ms(fn, iters, before=before)
     plain_ms = _events_ms(plain, max(iters // 10, 5), before=before)
     dev = _kernel_device_us(name, fn if before is None else (lambda: (before(), fn())), 50,
                             bound_ms, match)
     log(f"time [{card}]: {name}: {ms * 1000:.2f} us per call, device time {dev}, plain PyTorch "
         f"{plain_ms * 1000:.2f} us, bound {bound_ms * 1000:.2f} us")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=None)
+    return dict(shape=list(shape), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, library_ms=None)
 
 
 L2_FLUSH_BYTES = 256 * 2**20  # five times the H100's 50 MB L2
@@ -3966,7 +3960,7 @@ def int8_kernel_times(card: str) -> dict:
     x = _i8(gen, (4, 64, 176, 176))           # res2's 3x3 input
     rows, k = 4 * 176 * 176, 9 * 64
     out["int8_im2col"] = _timed(
-        card, "int8_im2col at res2 3x3 (4,64,176,176) -> (123904, 576)",
+        card, "int8_im2col at res2 3x3 (4,64,176,176) -> (123904, 576)", x.shape,
         lambda: ic.int8_im2col(x, 3, pad=1), lambda: ic.int8_im2col_plain(x, 3, pad=1),
         _bound_ms(x.numel() + rows * k))
     shape = (4, 512, 88, 88)                  # a res3 block end
@@ -3974,7 +3968,7 @@ def int8_kernel_times(card: str) -> dict:
     kw = dict(relu=True, requant_s=0.0517)
     n = acc.numel()
     out["int8_epilogue"] = _timed(
-        card, f"int8_epilogue at {shape}: bf16 residual, ReLU, f32 out + requantized",
+        card, f"int8_epilogue at {shape}: bf16 residual, ReLU, f32 out + requantized", shape,
         lambda: ic.int8_epilogue(acc, scale, bias, res, **kw),
         lambda: ic.int8_epilogue_plain(acc, scale, bias, res, **kw),
         _bound_ms(n * 4 + n * 4 + n * 4 + n + shape[1] * 8))
@@ -3985,6 +3979,7 @@ def int8_kernel_times(card: str) -> dict:
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
     out["quantize_i8"] = _timed(
         card, f"quantize_i8 at the stem's output {tuple(y.shape)}, L2 flushed before each call",
+        y.shape,
         lambda: ic.quantize_i8(y, 0.0371), lambda: ic.quantize_i8_plain(y, 0.0371),
         _bound_ms(y.numel() * 5), iters=50, before=flush.zero_, match="quantize")
     del flush
@@ -4240,6 +4235,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(counts[name] for counts in paths.values()),
          "launches_per_path": {path: counts[name] for path, counts in paths.items()},
+         "shape": times[name]["shape"],
          "max_abs_err": errs[name],
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",

@@ -79,9 +79,8 @@
 //   where N*J clusters exceed what it holds, the rest start as earlier
 //   clusters leave (every plane is independent: only the time grows).
 //   Clusters of 16 (non-portable) won at no path shape on the card by
-//   more than two readings of one size differ (chip_smoke.py times both
-//   sizes); 8 is portable and needs no probe. Each block takes a band of
-//   the plane's valid rows;
+//   more than two readings of one size differ; 8 is portable and needs no
+//   probe. Each block takes a band of the plane's valid rows;
 // - a 2-D walk: the band is rows x vectors of G floats (G = 4, 2 or 1: the
 //   widest load that the view's width and strides allow, from the wrapper,
 //   halved at the launch until the base is aligned), thread t starts at
@@ -111,6 +110,16 @@
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
+
+// A probability-map view's geometry, checked and built once per geometry by
+// the caller (ops/cuda_decode.py mirrors it as a ctypes Structure).
+struct ProbGeometry {
+  long long pn, pj, ph;  // prob's element strides of image, joint and row; column stride 1
+  long long ln, lj, lh;  // loc's
+  int n, J, h, w;
+  int granule;           // the widest load (4, 2 or 1 floats) the width and strides allow
+  int device;
+};
 
 namespace {
 
@@ -142,9 +151,7 @@ struct FusedArgs {
 };
 
 struct ProbArgs {
-  long long pn, pj, ph;  // prob's element strides of image, joint and row; column stride 1
-  long long ln, lj, lh;  // loc's
-  int n, J, h, w;
+  ProbGeometry g;  // the view's; g.n is this launch's images
   float scale;
   int vh[kMaxBatch];
   int vw[kMaxBatch];
@@ -352,15 +359,15 @@ decode_prob_kernel(const float* __restrict__ prob, const float* __restrict__ loc
   const int ranks = static_cast<int>(cluster.num_blocks());
   const int j = blockIdx.y;
   const int n = blockIdx.z;
-  const int w = a.w;
-  const int vh = min(max(a.vh[n], 0), a.h);
+  const int w = a.g.w;
+  const int vh = min(max(a.vh[n], 0), a.g.h);
   const int vw = min(max(a.vw[n], 0), w);
-  const float* plane = prob + n * a.pn + j * a.pj;
+  const float* plane = prob + n * a.g.pn + j * a.g.pj;
 
   __shared__ float s_val[kProbWarps];
   __shared__ int s_idx[kProbWarps];
-  __shared__ float g_val[kMaxCluster];  // block 0: every block's pair
-  __shared__ int g_idx[kMaxCluster];
+  __shared__ float g_val[kProbCluster];  // block 0: every block's pair
+  __shared__ int g_idx[kProbCluster];
 
   // this block's band of valid rows; q vectors of G floats cover a valid row
   const int r_begin = static_cast<int>(static_cast<long long>(vh) * rank / ranks);
@@ -382,7 +389,7 @@ decode_prob_kernel(const float* __restrict__ prob, const float* __restrict__ loc
       for (int u = 0; u < kUnroll; ++u) {
         kk[u] = k;
         cc[u] = c * G;
-        if (k < rows) load_vec<G>(plane + (r_begin + k) * a.ph + c * G, v[u]);
+        if (k < rows) load_vec<G>(plane + (r_begin + k) * a.g.ph + c * G, v[u]);
         k += dk;
         c += dc;
         if (c >= q) {
@@ -434,8 +441,8 @@ decode_prob_kernel(const float* __restrict__ prob, const float* __restrict__ loc
   if (i == INT_MAX) i = 0;  // no valid cell: the plain version's argmax of all -inf
   const int row = i / w;
   const int col = i - row * w;
-  const float* at = loc + n * a.ln + 2LL * j * a.lj + row * a.lh + col;
-  write_pose(out + static_cast<long long>(n) * 5 * a.J + j, a.J, i, v, w, at[0], at[a.lj],
+  const float* at = loc + n * a.g.ln + 2LL * j * a.g.lj + row * a.g.lh + col;
+  write_pose(out + static_cast<long long>(n) * 5 * a.g.J + j, a.g.J, i, v, w, at[0], at[a.g.lj],
              a.scale);
 }
 
@@ -540,44 +547,20 @@ int decode_fused_launch(const float* fused, float* out, long long sn, long long 
 
 int decode_pose_cluster() { return kProbCluster; }
 
-// A probability-map view's geometry, checked and built once per geometry by
-// the caller (ops/cuda_decode.py mirrors it as a ctypes Structure).
-struct ProbGeometry {
-  long long pn, pj, ph;  // prob's element strides of image, joint and row
-  long long ln, lj, lh;  // loc's
-  int n, J, h, w;
-  int granule;           // the widest load (4, 2 or 1 floats) the width and strides allow
-  int device;
-};
-
 // sizes: the n valid rows, then the n valid columns. Launches once per
-// kMaxBatch images; `cluster` 0 takes kProbCluster, 1-16 another size (for
-// measurements).
+// kMaxBatch images.
 int decode_pose_launch(const ProbGeometry* g, const float* prob, const float* loc, float* out,
-                       const int* sizes, float scale, int cluster, cudaStream_t stream) {
+                       const int* sizes, float scale, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(g->device);
   if (err != cudaSuccess) return static_cast<int>(err);
   int granule = g->granule;  // and the base's alignment
   while (reinterpret_cast<unsigned long long>(prob) % (4 * granule) != 0) granule /= 2;
   const ProbKernel kernel = prob_kernel(granule);
-  const int cs = cluster > 0 && cluster <= kMaxCluster ? cluster : kProbCluster;
-  if (cs > 8) {  // a non-portable size
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   for (int i = 0; i < g->n; i += kMaxBatch) {
     const int m = g->n - i < kMaxBatch ? g->n - i : kMaxBatch;
     ProbArgs a = {};
-    a.pn = g->pn;
-    a.pj = g->pj;
-    a.ph = g->ph;
-    a.ln = g->ln;
-    a.lj = g->lj;
-    a.lh = g->lh;
-    a.n = m;
-    a.J = g->J;
-    a.h = g->h;
-    a.w = g->w;
+    a.g = *g;
+    a.g.n = m;
     a.scale = scale;
     for (int k = 0; k < m; ++k) {
       a.vh[k] = sizes[i + k];
@@ -586,10 +569,10 @@ int decode_pose_launch(const ProbGeometry* g, const float* prob, const float* lo
     cudaLaunchConfig_t config = {};
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cs;
+    attr[0].val.clusterDim.x = kProbCluster;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
-    config.gridDim = dim3(cs, g->J, m);
+    config.gridDim = dim3(kProbCluster, g->J, m);
     config.blockDim = dim3(kProbThreads, 1, 1);
     config.dynamicSmemBytes = 0;
     config.stream = stream;

@@ -42,9 +42,6 @@ prob_launches = 0  # probability-map entry launches, likewise
 # first call's scale, so that a caller can replay every geometry a path
 # gave the kernel against its plain version
 geometries: Optional[Dict[tuple, tuple]] = None
-# the probability-map entry's blocks per plane: 0 takes the kernel's own
-# (kProbCluster); a measurement may set 1-16
-prob_cluster = 0
 _plans: Dict[tuple, tuple] = {}  # the prob entry's checked launch arguments per geometry
 _lock = threading.Lock()
 _lib = None
@@ -60,7 +57,7 @@ def _library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(LIB)[0]))
             fn = lib.decode_pose_launch
             fn.argtypes = ([ctypes.POINTER(_Geometry)] + [ctypes.c_void_p] * 4
-                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                           + [ctypes.c_float, ctypes.c_void_p])
             fn.restype = ctypes.c_int
             fn = lib.decode_fused_launch
             fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 6
@@ -232,7 +229,7 @@ def decode_pose(prob: torch.Tensor, loc: torch.Tensor, valid_h: Sizes, valid_w: 
     lib = _library()
     out = torch.empty((n, 5, geometry.J), dtype=torch.float32, device=prob.device)
     err = lib.decode_pose_launch(ref, prob.data_ptr(), loc.data_ptr(), out.data_ptr(),
-                                 (ctypes.c_int * (2 * n))(*vh, *vw), float(scale), prob_cluster,
+                                 (ctypes.c_int * (2 * n))(*vh, *vw), float(scale),
                                  torch._C._cuda_getCurrentRawStream(geometry.device))
     if err != 0:
         raise RuntimeError(f"decode_pose kernel launch failed: cudaError {err}")
