@@ -4,10 +4,11 @@
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --serving-times  # phase 1 and the serving times only
 
-Drives the port's eight paths (bf16 serving, int8 serving, training, the
-Caffe graph engine's serving, its data slice, MatCaffe with data-parallel
-training, the spatial axis, and the engine's training) at full width through their entry
-points, in phases; any failure raises and the exit code is non-zero:
+Drives the port's nine paths (bf16 serving, int8 serving, training, the
+Caffe graph engine's serving, its data slice, the examples' front ends,
+MatCaffe with data-parallel training, the spatial axis, and the engine's
+training) at full width through their entry points, in phases; any failure
+raises and the exit code is non-zero:
 
 1. the card: nvidia-smi's name and power limit, torch / CUDA versions;
 2. build the CUDA kernels from csrc/ with nvcc, one process per source, all
@@ -29,12 +30,13 @@ points, in phases; any failure raises and the exit code is non-zero:
    frame on the tiled path and estimate_pose_avg over a 688 frame at
    PYRAMID_SCALES, each decoded by one launch of the probability-map entry
    bit-equal to the plain version on the path's own maps;
-5. examples/pose/serve.py, unchanged, serving the port's estimator: three
-   concurrent HTTP requests of mixed sizes, one of them HD;
+5. the port's pose service (`deepcut_tpu_torch.examples.pose.serve`)
+   serving the port's estimator: three concurrent HTTP requests of mixed
+   sizes, one of them HD;
 Q. int8 serving: quantize_int8 on a 480x640 frame, estimate_pose and
    estimate_pose_batch, int8 against bf16 scoremaps, an HD frame on the
    tiled path, an int8_deconv=True estimator, forward_int8's int8_residual
-   within the int8 envelope; then serve.py's --int8 on a fresh estimator
+   within the int8 envelope; then the service's --int8 on a fresh estimator
    (it calibrates on the first request) with the requests of phase 5;
 T1. training through `python -m deepcut_tpu_torch.tools.cli train`'s entry
    point: copies of examples/pose/pose_{train,solver}.prototxt over a
@@ -93,6 +95,23 @@ E. the graph engine's training, f32 with TF32 off: E(a) CaffeNet at BVLC's
    losses through `GraphSolver`
    against one `PoseSolver.step` on the same weights and host batch (the
    loss, conv1's and the heads' updates and weights); both timed;
+X. the examples' front ends (`deepcut_tpu_torch.examples`), each started as
+   a user starts it: X1 the pose service through its default path
+   (`PoseApp(model_bin=...)`: `get_estimator` loads phase 4's tamed
+   ResNet-152 from a .caffemodel), in bf16 and with --int8 (a private copy
+   calibrated on the first request): four concurrent first requests,
+   EXAMPLE_REQUESTS sequential 688x688 requests (request latency, median and
+   90th percentile, beside `estimate_pose`'s wall time on the same frames)
+   and a 720x1280 one (the tiled path), each pose equal to `estimate_pose`'s
+   after the JSON rounding; then --batch-window 4 and two bursts of
+   EXAMPLE_BURST concurrent requests (img/s, `batches_run` / `images_run`);
+   X2 the web demo on G1's CaffeNet weights, its top-5 against
+   `Classifier.predict`; X3 `python -m ...classification` and
+   `...detection` as two processes, their classes against the Classifier's
+   and Detector's in this process; X4 `net_surgery`; X5 the mnist maker to
+   the LMDB examples/mnist/lenet_train.prototxt names, then `cli train` on
+   lenet_solver.prototxt cut to LENET_ITERATIONS iterations, its loss
+   falling;
 M. MatCaffe and data-parallel training: M1 the reference's matcaffe
    scenarios (test_net, test_solver, test_io) through
    `matlab_gateway.dispatch` on the card (set_mode_gpu) and on the CPU, the
@@ -147,7 +166,9 @@ phase 5 (the serving path), zeroed again before Q and read after its
 server (the int8 serving path), again before T1 and after T3 (the
 training path), again before G and after it (the graph engine's path),
 again before D and after it (the data slice's path: `cli test` in bf16
-launches conv_epilogue), again before M and after it (MatCaffe and the
+launches conv_epilogue), again before X and after it (the examples' path:
+the launches of the requests its services answered, X1's and X2's; its
+in-process references are logged apart), again before M and after it (MatCaffe and the
 data-parallel path: the eval hook's decode), again before S and after it
 (the spatial path, with the counts of its two ranks: every kernel), and again before E and after it (the engine's
 training path, which launches no kernel: its f32 stream rounds nowhere).
@@ -166,7 +187,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import http.client
-import importlib.util
 import io
 import itertools
 import json
@@ -175,6 +195,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -1021,44 +1042,55 @@ def phase_int8(est16, rng):
 
 
 # -- 5. the server -----------------------------------------------------------
-def _post_png(port: int, img_bgr: np.ndarray) -> dict:
+def _png(img_bgr: np.ndarray) -> bytes:
     from PIL import Image
 
     buf = io.BytesIO()
     Image.fromarray(img_bgr[:, :, ::-1]).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _png_body(img_bgr: np.ndarray) -> tuple:
+    """A frame as the multipart upload a client sends: (body, headers)."""
     boundary = "chipsmokeboundary"
     body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"image\"; "
             f"filename=\"f.png\"\r\nContent-Type: image/png\r\n\r\n").encode() \
-        + buf.getvalue() + f"\r\n--{boundary}--\r\n".encode()
+        + _png(img_bgr) + f"\r\n--{boundary}--\r\n".encode()
+    return body, {"Content-Type": f"multipart/form-data; boundary={boundary}"}
+
+
+def _post(port: int, path: str, upload: tuple) -> dict:
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
     try:
-        conn.request("POST", "/estimate", body,
-                     {"Content-Type": f"multipart/form-data; boundary={boundary}"})
-        return json.loads(conn.getresponse().read())
+        conn.request("POST", path, *upload)
+        answer = json.loads(conn.getresponse().read())
     finally:
         conn.close()
+    if not answer.get("ok"):
+        raise AssertionError(f"POST {path}: {answer}")
+    return answer
 
 
 def phase_server(est, rng, int8: bool = False):
     """int8: the service's --int8, which calibrates `est` on the first
     request's frame."""
-    spec = importlib.util.spec_from_file_location("pose_serve", ROOT / "examples/pose/serve.py")
-    serve = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(serve)
+    from deepcut_tpu_torch.examples.pose import serve
+
     app = serve.PoseApp(estimator=est, int8=int8, batch_window_ms=4)
     httpd = serve.serve(app, port=0, background=True)
     try:
         frames = [frame(rng, 480, 640), frame(rng, 300, 400), frame(rng, 720, 1280)]
         with ThreadPoolExecutor(len(frames)) as pool:
-            answers = list(pool.map(lambda f: _post_png(httpd.server_address[1], f), frames))
+            answers = list(pool.map(
+                lambda f: _post(httpd.server_address[1], "/estimate", _png_body(f)), frames))
     finally:
         httpd.shutdown()
         httpd.server_close()
     if int8 and not est.is_int8:
-        raise AssertionError("serve.py --int8 did not quantize the estimator")
+        raise AssertionError("the service's --int8 did not quantize the estimator")
     what = "int8 " if int8 else ""
     for f, ans in zip(frames, answers):
-        if not ans.get("ok") or len(ans["joints"]) != J:
+        if len(ans["joints"]) != J:
             raise AssertionError(f"{what}server answer for {f.shape}: {ans}")
         direct = est.estimate_pose(f)
         served = np.asarray(ans["pose"], np.float32)
@@ -1449,6 +1481,16 @@ def _steps_bf16(got: torch.Tensor, want: torch.Tensor, *terms: torch.Tensor) -> 
     return float(((got - want).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
 
 
+def caffenet_weights(path: Path, device: str = "cuda") -> Path:
+    """G1's CaffeNet weights (`tame_caffenet` from the seed) as a .caffemodel."""
+    from deepcut_tpu_torch import compat
+
+    writer = compat.Net(str(CAFFENET), compat.TEST, device=device)
+    tame_caffenet(writer._net, torch.Generator().manual_seed(SEED))
+    writer.save(str(path))
+    return path
+
+
 def phase_graph_caffenet(root: Path, rng, device: str = "cuda") -> dict:
     """G1: CaffeNet at full width (examples/imagenet/caffenet_deploy.prototxt,
     batch 10 of 227x227, 8 classes) from a seeded .caffemodel: the
@@ -1458,11 +1500,7 @@ def phase_graph_caffenet(root: Path, rng, device: str = "cuda") -> dict:
     from deepcut_tpu_torch.classifier import Classifier
     from deepcut_tpu_torch.core.graph import Net
 
-    weights = root / "caffenet_tamed.caffemodel"
-    writer = compat.Net(str(CAFFENET), compat.TEST, device=device)
-    tame_caffenet(writer._net, torch.Generator().manual_seed(SEED))
-    writer.save(str(weights))
-    del writer
+    weights = caffenet_weights(root / "caffenet_tamed.caffemodel", device)
     kw = dict(image_dims=(256, 256), raw_scale=255, channel_swap=(2, 1, 0),
               mean=IMAGENET_MEAN_BGR)
     cls = Classifier(str(CAFFENET), str(weights), device=device, **kw)
@@ -2173,15 +2211,15 @@ def window_file(root: Path, listing: Path) -> Path:
 
 def _expect_h5py_import_error(what: str, fn) -> None:
     """`fn` must raise ImportError naming h5py (the HDF5 paths where h5py is
-    missing)."""
+    missing); `what` names the phase and the path."""
     try:
         fn()
     except ImportError as e:
         if "h5py" not in str(e):
-            raise AssertionError(f"D6 {what}: ImportError without h5py's name: {e}") from e
-        log(f"D6 {what}: ImportError naming h5py ({e})")
+            raise AssertionError(f"{what}: ImportError without h5py's name: {e}") from e
+        log(f"{what}: ImportError naming h5py ({e})")
         return
-    raise AssertionError(f"D6 {what}: no ImportError without h5py")
+    raise AssertionError(f"{what}: no ImportError without h5py")
 
 
 def phase_data(root: Path, rng, device: str = "cuda") -> dict:
@@ -2363,9 +2401,9 @@ def phase_data(root: Path, rng, device: str = "cuda") -> dict:
     except ImportError:
         h5py = None
     if h5py is None:
-        _expect_h5py_import_error("extract_features", lambda: run_verb(feature_argv))
-        _expect_h5py_import_error("HDF5Output sink save", sink_save)
-        _expect_h5py_import_error("snapshot_format: HDF5", s.snapshot)
+        _expect_h5py_import_error("D6 extract_features", lambda: run_verb(feature_argv))
+        _expect_h5py_import_error("D6 HDF5Output sink save", sink_save)
+        _expect_h5py_import_error("D6 snapshot_format: HDF5", s.snapshot)
     else:
         run_verb(feature_argv)
         sink_save()
@@ -2442,6 +2480,402 @@ def data_times(d: dict, card: str) -> None:
         f"bf16 forward from the LevelDB (make_forward, the outputs to the host), batch "
         f"{CAFFENET_BATCH['TEST']}: {test_ms:.3f} ms, device busy {busy_t:.3f} ms (idle share "
         f"{1 - busy_t / test_ms:.3f}), {ops_t:.0f} device ops")
+
+
+# -- X. the examples' front ends --------------------------------------------------
+EXAMPLE_REQUESTS = 20        # X1's sequential 688x688 requests per mode
+EXAMPLE_BURST = 8            # X1's concurrent requests under --batch-window
+EXAMPLE_WINDOW_MS = 4.0      # the service's --batch-window
+EXAMPLE_FIRST_CALLS = 4      # X1's concurrent first requests on a fresh service
+LENET_ITERATIONS = 50        # X5's `cli train` iterations
+LENET_LOSS_FALL = 0.5        # X5: the last logged loss under half the first
+
+
+def _on_threads(fn, items, together: bool) -> list:
+    """fn(item) for each item on a new thread each: all started together
+    behind a barrier, or one after another; -> [(result, ms)]."""
+    out = [None] * len(items)
+    start = threading.Barrier(len(items) if together else 1)
+
+    def run(i):
+        start.wait(timeout=600)
+        t0 = time.perf_counter()
+        result = fn(items[i])
+        out[i] = (result, (time.perf_counter() - t0) * 1e3)
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True) for i in range(len(items))]
+    for t in threads:
+        t.start()
+        if not together:
+            t.join(timeout=600)
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads) or None in out:
+        raise AssertionError("a thread did not finish")
+    return out
+
+
+def _json_pose(pose: np.ndarray) -> list:
+    """A pose as the pose service rounds it into its JSON answer."""
+    return [[round(float(v), 4) for v in row] for row in np.asarray(pose, np.float64)]
+
+
+def _launches_since(before: dict) -> dict:
+    now = _counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def _add(total: dict, more: dict) -> None:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _pct(values, q: float) -> float:
+    return float(np.percentile(np.asarray(values, np.float64), q))
+
+
+def phase_examples_pose(root: Path, rng, card: str, int8: bool, served: dict,
+                        device: str = "cuda", size: int = 688, hd=(720, 1280)) -> None:
+    """X1, one mode: the port's pose service started through its default
+    path (`PoseApp(model_bin=...)`, no estimator given: `get_estimator`'s,
+    a private copy of it with --int8), four concurrent first requests, the
+    timed sequential ones, an HD frame (the tiled path), then a second
+    service with --batch-window and its concurrent bursts. The launches of
+    the served requests are added to `served`; the in-process
+    `estimate_pose` references run after them, outside the count."""
+    from deepcut_tpu_torch.examples.pose import serve
+    from deepcut_tpu_torch.pose.estimate import get_estimator
+
+    what = "int8" if int8 else "bf16"
+    weights = root / "resnet152_tamed.caffemodel"
+    frames = [frame(rng, size, size) for _ in range(EXAMPLE_REQUESTS)]
+    uploads = [_png_body(f) for f in frames]
+    hd_frame = frame(rng, *hd)
+    before = _counts()
+    t0 = time.perf_counter()
+    app = serve.PoseApp(model_bin=str(weights), int8=int8, device=device)
+    load_s = time.perf_counter() - t0
+    httpd = serve.serve(app, port=0, background=True)
+    port = httpd.server_address[1]
+    try:
+        with ThreadPoolExecutor(EXAMPLE_FIRST_CALLS) as pool:
+            first = list(pool.map(lambda u: _post(port, "/estimate", u),
+                                  uploads[:EXAMPLE_FIRST_CALLS]))
+        answers, latency = [], []
+        for upload in uploads:
+            t0 = time.perf_counter()
+            answers.append(_post(port, "/estimate", upload))
+            latency.append((time.perf_counter() - t0) * 1e3)
+        hd_answer = _post(port, "/estimate", _png_body(hd_frame))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    _add(served, _launches_since(before))
+    if app.est.is_int8 != int8 or get_estimator("", str(weights), device).is_int8:
+        raise AssertionError(f"X1 {what}: --int8 must quantize the service's own copy of the "
+                             "cached estimator, and only it")
+    direct_ms, exact = [], 0
+    for f, ans in zip(frames, answers):
+        t0 = time.perf_counter()
+        pose = app.est.estimate_pose(f)
+        direct_ms.append((time.perf_counter() - t0) * 1e3)
+        exact += ans["pose"] == _json_pose(pose)
+    for f, ans in zip(frames, first):
+        exact += ans["pose"] == _json_pose(app.est.estimate_pose(f))
+    if exact != len(answers) + len(first):
+        raise AssertionError(f"X1 {what}: {exact} of {len(answers) + len(first)} served poses "
+                             "equal estimate_pose's after the JSON rounding")
+    if hd_answer["pose"] != _json_pose(app.est.estimate_pose(hd_frame)):
+        raise AssertionError(f"X1 {what}: the HD frame's served pose differs from estimate_pose's")
+    # where a request's time goes: the app without HTTP (PNG decode, the
+    # runner thread, JSON), and estimate_pose on a new thread per call, as a
+    # service calling it from its handler threads would (PyTorch caches
+    # cuDNN's execution plans per thread); four new threads at once must
+    # give the serial poses (the estimator's state is shared)
+    app_ms = []
+    for f in frames:
+        png = _png(f)
+        t0 = time.perf_counter()
+        app.estimate_bytes(png)
+        app_ms.append((time.perf_counter() - t0) * 1e3)
+    fresh = _on_threads(app.est.estimate_pose, frames[:EXAMPLE_FIRST_CALLS], together=False)
+    together = _on_threads(app.est.estimate_pose, frames[:EXAMPLE_FIRST_CALLS], together=True)
+    serial = [app.est.estimate_pose(f) for f in frames[:EXAMPLE_FIRST_CALLS]]
+    for (alone, _), (at_once, _), ref in zip(fresh, together, serial):
+        if not (np.array_equal(alone, ref) and np.array_equal(at_once, ref)):
+            raise AssertionError(f"X1 {what}: estimate_pose on new threads differs from the "
+                                 "serial poses")
+    log(f"X1 [{card}] pose service, {what}, default path (model load {load_s:.2f} s"
+        f"{', int8 calibrated on the first request' if int8 else ''}): "
+        f"{EXAMPLE_FIRST_CALLS} concurrent first requests, {len(answers)} sequential {size}x{size} "
+        f"requests and one {hd[0]}x{hd[1]} (tiled) request, every pose equal to estimate_pose's after "
+        f"the JSON rounding; request latency median {_pct(latency, 50):.3f} ms, p90 "
+        f"{_pct(latency, 90):.3f} ms (min {min(latency):.3f}, max {max(latency):.3f}); "
+        f"estimate_pose on the same frames in process: median {_pct(direct_ms, 50):.3f} ms, p90 "
+        f"{_pct(direct_ms, 90):.3f} ms; HTTP, PNG decode and JSON take "
+        f"{_pct(latency, 50) - _pct(direct_ms, 50):.3f} ms of the median; the app's "
+        f"estimate_bytes without HTTP (PNG decode, the runner thread, JSON): median "
+        f"{_pct(app_ms, 50):.3f} ms; estimate_pose on a new thread per call: "
+        f"{', '.join(f'{ms:.3f}' for _, ms in fresh)} ms (cold per-thread cuDNN plans), "
+        f"four new threads at once: {', '.join(f'{ms:.3f}' for _, ms in together)} ms, "
+        f"poses equal to the serial ones")
+
+    before = _counts()
+    appb = serve.PoseApp(model_bin=str(weights), int8=int8, batch_window_ms=EXAMPLE_WINDOW_MS,
+                         device=device)
+    httpd = serve.serve(appb, port=0, background=True)
+    port = httpd.server_address[1]
+    # the batcher's batches, recorded: their composition depends on arrival
+    # order, and cuDNN's sums (so bf16's roundings) on the batch size
+    batches = []
+    many = appb.est.estimate_pose_many
+
+    def recorded(images, scale=1.0):
+        poses = many(images, scale)
+        batches.append((list(images), scale, poses))
+        return poses
+
+    appb.est.estimate_pose_many = recorded
+    bursts = []
+    try:
+        for _ in range(2):   # the first burst meets the batch shapes (and int8's calibration)
+            batches.clear()
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(EXAMPLE_BURST) as pool:
+                burst = list(pool.map(lambda u: _post(port, "/estimate", u),
+                                      uploads[:EXAMPLE_BURST]))
+            bursts.append((time.perf_counter() - t0, burst))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        del appb.est.estimate_pose_many
+    _add(served, _launches_since(before))
+    # each served pose is its batch's, after the JSON rounding, and each
+    # batch run again gives the same poses; beside them, how far batching
+    # moved each pose from estimate_pose's on the frame alone
+    served_by = [(img, pose) for images, _, poses in batches for img, pose in zip(images, poses)]
+    for images, scale, poses in batches:
+        if not np.array_equal(many(images, scale), poses):
+            raise AssertionError(f"X1 {what}: a batch of {len(images)} run again differs")
+    same, dconf, cells = 0, 0.0, 0
+    for f, ans in zip(frames, bursts[-1][1]):
+        pose = next(p for img, p in served_by if np.array_equal(img, f))
+        if ans["pose"] != _json_pose(pose):
+            raise AssertionError(f"X1 {what}: a burst's served pose differs from its batch's")
+        alone = appb.est.estimate_pose(f)
+        same += ans["pose"] == _json_pose(alone)
+        dconf = max(dconf, float(np.abs(pose[2] - alone[2]).max()))
+        cells += int(np.all(cell_of(pose) == cell_of(alone), axis=0).sum())
+    log(f"X1 [{card}] pose service, {what}, --batch-window {EXAMPLE_WINDOW_MS:g}: bursts of "
+        f"{EXAMPLE_BURST} concurrent {size}x{size} requests, {EXAMPLE_BURST / bursts[0][0]:.2f} then "
+        f"{EXAMPLE_BURST / bursts[1][0]:.2f} img/s ({bursts[1][0] * 1e3:.3f} ms for the "
+        f"second); {appb.batcher.batches_run} batches for {appb.batcher.images_run} images, the "
+        f"second burst's {[len(images) for images, _, _ in batches]}; every served pose equal to "
+        f"its batch's after the JSON rounding, every batch run again equal; against "
+        f"estimate_pose on each frame alone: {same} of {len(bursts[-1][1])} equal after the "
+        f"rounding, argmax cell on {cells} of {len(bursts[-1][1]) * J} joints, max |dconf| "
+        f"{dconf:.4g}")
+
+
+def phase_examples_web(root: Path, rng, card: str, weights: Path, device: str = "cuda") -> dict:
+    """X2: the web demo on G1's CaffeNet: its top-5 against the port's
+    Classifier (center crop, f32) on the same upload."""
+    from PIL import Image
+    from deepcut_tpu_torch.classifier import Classifier
+    from deepcut_tpu_torch.examples.web_demo import app as web
+
+    before = _counts()
+    labels = [f"synset_{i}" for i in range(COLOR_CLASSES)]
+    demo = web.ClassifierApp(str(CAFFENET), str(weights), mean=IMAGENET_MEAN_BGR,
+                             labels=labels, device=device)
+    httpd = web.serve(demo, port=0, background=True)
+    imgs = [frame(rng, 300, 400), frame(rng, 480, 640)]
+    try:
+        answers = [_post(httpd.server_address[1], "/classify_upload", _png_body(im))
+                   for im in imgs]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    launched = _launches_since(before)
+    ref = Classifier(str(CAFFENET), str(weights), mean=IMAGENET_MEAN_BGR, raw_scale=255.0,
+                     channel_swap=(2, 1, 0), device=device)
+    for im, ans in zip(imgs, answers):
+        rgb = np.asarray(Image.fromarray(im[:, :, ::-1]), np.float32) / 255.0
+        probs = ref.predict([rgb], oversample=False)[0]
+        top5 = np.argsort(probs)[::-1][:5]
+        got = [t["label"] for t in ans["top5"]]
+        dp = max(abs(t["prob"] - float(probs[i])) for t, i in zip(ans["top5"], top5))
+        if got != [labels[i] for i in top5] or dp > 1e-5:
+            raise AssertionError(f"X2 web demo: {ans['top5']} against Classifier {probs}")
+    log(f"X2 [{card}] web demo on G1's CaffeNet (f32): {len(imgs)} uploads, top-5 labels equal "
+        f"to Classifier.predict's, probabilities within 1e-5; top classes "
+        f"{[a['top5'][0]['label'] for a in answers]}")
+    return launched
+
+
+def phase_examples_scripts(root: Path, rng, card: str, weights: Path,
+                           device: str = "cuda") -> None:
+    """X3: `classification` and `detection` as a user starts them, two
+    processes on the card at once, against the port's Classifier and
+    Detector in this process on G1's weights and configuration."""
+    from PIL import Image
+    from deepcut_tpu_torch import io as dio
+    from deepcut_tpu_torch.classifier import Classifier
+    from deepcut_tpu_torch.detector import Detector
+
+    images = []
+    for i, (h, w) in enumerate(((480, 640), (360, 500))):
+        images.append(root / f"x3_{i}.png")
+        Image.fromarray(frame(rng, h, w)[:, :, ::-1]).save(images[-1])
+    mean = root / "x3_mean.binaryproto"
+    mean.write_bytes(dio.array_to_blobproto_bytes(IMAGENET_MEAN_BGR.reshape(1, 3, 1, 1)))
+    labels = [f"synset_{i}" for i in range(COLOR_CLASSES)]
+    (root / "x3_labels.txt").write_text("".join(f"{n}\n" for n in labels))
+    windows = []
+    for path in images:
+        h, w = Image.open(path).size[::-1]
+        y0, x0 = rng.randint(0, h // 2, 5), rng.randint(0, w // 2, 5)
+        windows.append((str(path), np.stack([y0, x0, y0 + rng.randint(40, h // 2, 5),
+                                             x0 + rng.randint(40, w // 2, 5)], 1)))
+    wfile = root / "x3_windows.txt"
+    wfile.write_text("".join(f"{p}\n" + "".join(" ".join(map(str, b)) + "\n" for b in boxes)
+                             for p, boxes in windows))
+    out_npz = root / "x3_det.npz"
+    cmds = {"classification": [str(CAFFENET), str(weights), *map(str, images), "--mean", str(mean),
+                               "--labels", str(root / "x3_labels.txt")],
+            "detection": [str(CAFFENET), str(weights), str(wfile), "--mean", str(mean),
+                          "--context-pad", str(DETECTOR_CONTEXT_PAD), "--out", str(out_npz)]}
+    for argv in cmds.values():
+        argv += ["--device", device]
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, "-m", f"deepcut_tpu_torch.examples.{name}",
+                                     *argv], cwd=str(ROOT), stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, argv in cmds.items()}
+    outs = {}
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
+        if proc.returncode != 0:
+            raise AssertionError(f"X3 {name} exited {proc.returncode}:\n{out}\n{err[-4000:]}")
+        outs[name] = out
+    wall = time.perf_counter() - t0
+
+    probs = Classifier(str(CAFFENET), str(weights), mean=IMAGENET_MEAN_BGR, raw_scale=255.0,
+                       channel_swap=(2, 1, 0), device=device).predict(
+                           [dio.load_image(str(p)) for p in images])
+    printed = outs["classification"].splitlines()
+    want = []
+    for path, p in zip(images, probs):
+        want.append(str(path))
+        want += [f"  {p[i]:.4f}  {labels[i]}" for i in np.argsort(p)[::-1][:5]]
+    got_classes = [ln.split()[-1] for ln in printed if ln.startswith("  ")]
+    want_classes = [ln.split()[-1] for ln in want if ln.startswith("  ")]
+    dp = max(abs(float(g.split()[0]) - float(w.split()[0]))
+             for g, w in zip([ln for ln in printed if ln.startswith("  ")],
+                             [ln for ln in want if ln.startswith("  ")]))
+    if got_classes != want_classes or dp > 1e-4 or len(printed) != len(want):
+        raise AssertionError(f"X3 classification printed:\n{outs['classification']}\nwant:\n"
+                             + "\n".join(want))
+    det = Detector(str(CAFFENET), str(weights), mean=IMAGENET_MEAN_BGR, raw_scale=255.0,
+                   channel_swap=(2, 1, 0), context_pad=DETECTOR_CONTEXT_PAD, device=device)
+    ref = np.stack([d["prediction"] for d in det.detect_windows(windows)])
+    saved = np.load(out_npz)["predictions"]
+    printed_top = [int(ln.split("-> class ")[1].split()[0])
+                   for ln in outs["detection"].splitlines() if "-> class " in ln]
+    d = float(np.abs(saved - ref).max())
+    if printed_top != ref.argmax(1).tolist() or d > 1e-5:
+        raise AssertionError(f"X3 detection: classes {printed_top} against "
+                             f"{ref.argmax(1).tolist()}, max |dp| {d}")
+    log(f"X3 [{card}] python -m deepcut_tpu_torch.examples.classification and .detection, two "
+        f"processes at once on {device} ({wall:.1f} s wall): exit 0; classification's top-5 "
+        f"classes equal Classifier.predict's (10-crop, f32), printed probabilities within "
+        f"{dp:.2g}; detection's classes {printed_top} equal Detector.detect_windows's, its .npz "
+        f"within {d:.3g}")
+
+
+def phase_examples_lenet(root: Path, card: str, device: str = "cuda") -> None:
+    """X5: the mnist maker to its default path (the LMDB that
+    examples/mnist/lenet_train.prototxt names), then `cli train` on a copy
+    of examples/mnist/lenet_solver.prototxt cut to LENET_ITERATIONS
+    iterations, from the repository's root as the recipe runs."""
+    from deepcut_tpu_torch.examples.mnist import make_dataset as mnist
+
+    solver = (ROOT / "examples/mnist/lenet_solver.prototxt").read_text()
+    for key, value in (("max_iter: 1000", f"max_iter: {LENET_ITERATIONS}"),
+                       ("display: 100", "display: 10"), ("snapshot: 1000", "snapshot: 0"),
+                       ('snapshot_prefix: "examples/mnist/lenet"',
+                        f'snapshot_prefix: "{root / "lenet"}"')):
+        if key not in solver:
+            raise AssertionError(f"lenet_solver.prototxt has no {key!r}")
+        solver = solver.replace(key, value)
+    (root / "lenet_solver.prototxt").write_text(solver)
+    with contextlib.chdir(ROOT):
+        t0 = time.perf_counter()
+        mnist.make_lmdb("examples/mnist/train_lmdb", 2000)
+        made = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out, _ = run_verb(["train", "-solver", str(root / "lenet_solver.prototxt"),
+                           "-device", device])
+        trained = time.perf_counter() - t0
+    losses = [float(ln.split("loss = ")[1].split(",")[0]) for ln in out.splitlines()
+              if ln.startswith("Iteration ") and "loss = " in ln]
+    if len(losses) < 3 or not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < LENET_LOSS_FALL * losses[0]:
+        raise AssertionError(f"X5 LeNet losses {losses}")
+    log(f"X5 [{card}] the mnist maker wrote 2000 glyphs to examples/mnist/train_lmdb in "
+        f"{made:.2f} s; cli train on lenet_solver.prototxt ({LENET_ITERATIONS} iterations, "
+        f"{trained:.2f} s) logged losses {[round(v, 4) for v in losses]}")
+    from deepcut_tpu_torch.examples.hdf5_classification import make_dataset as hdf5
+
+    out = root / "hdf5_classification"
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        _expect_h5py_import_error("X5 the HDF5 classification maker", lambda: hdf5.main(40, out))
+        if out.exists():
+            raise AssertionError("X5 the HDF5 maker wrote files before its ImportError")
+        return
+    hdf5.main(40, str(out))
+    log(f"X5 [{card}] the HDF5 classification maker wrote "
+        f"{sorted(p.name for p in out.iterdir())}")
+
+
+def phase_examples(card: str, rng, device: str = "cuda", size: int = 688,
+                   hd=(720, 1280)) -> dict:
+    """X: the examples' front ends on the card; returns the launches of the
+    served requests (X1, X2), the path's count. Rehearse it on the CPU with
+    device="cpu" and small frames (`size`, and an `hd` frame whose canvas
+    still exceeds 700 px on one side)."""
+    from deepcut_tpu_torch.examples import net_surgery
+    from deepcut_tpu_torch.models.convert import save_caffemodel
+
+    served: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_x_") as tmp:
+        root = Path(tmp)
+        save_caffemodel(str(root / "resnet152_tamed.caffemodel"),
+                        tame_params(deepercut_config(152)))
+        for int8 in (False, True):
+            phase_examples_pose(root, rng, card, int8, served, device, size, hd)
+        weights = caffenet_weights(root / "caffenet_tamed.caffemodel", device)
+        _add(served, phase_examples_web(root, rng, card, weights, device))
+        phase_examples_scripts(root, rng, card, weights, device)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+            net_surgery.main(["--device", device])
+        if "surgery exact" not in buf.getvalue():
+            raise AssertionError("X4 net_surgery did not report an exact surgery")
+        log(f"X4 [{card}] net_surgery on {device}: filter surgery and the fully-convolutional "
+            "cast exact")
+        phase_examples_lenet(root, card, device)
+    from deepcut_tpu_torch.pose.estimate import _MODEL_CACHE
+
+    _MODEL_CACHE.clear()   # the services' cached ResNet-152
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return served
 
 
 # -- M. MatCaffe and data-parallel training ----------------------------------------
@@ -4189,6 +4623,9 @@ def main() -> int:
     _zero_counts()                               # the data slice's path starts here
     data_state = phase_data(Path(data_dir.name), rng)
     data = _counts()                             # and ends here
+    _zero_counts()                               # the examples' front ends start here
+    examples = phase_examples(card, rng)         # (their served requests' launches)
+    log(f"X's launches with its in-process references: {_counts()}")
     _zero_counts()                               # MatCaffe and data parallel start here
     phase_matcaffe_dp(card)
     matcaffe_dp = _counts()                      # and end here
@@ -4202,6 +4639,7 @@ def main() -> int:
     engine = _counts()                           # and ends here
     log(f"kernel launches: serving path {serving}, int8 serving path {int8}, "
         f"training path {training}, graph engine path {graph}, data slice path {data}, "
+        f"examples path {examples}, "
         f"MatCaffe + data-parallel path {matcaffe_dp}, spatial path (its two ranks) {spatial} "
         f"(and S's one-process references {spatial_ref}, not counted), engine training path "
         f"{engine}")
@@ -4214,6 +4652,7 @@ def main() -> int:
                                ("graph engine", graph, ("conv_epilogue", "quantize_i8",
                                                         "int8_im2col", "int8_epilogue")),
                                ("data slice", data, ("conv_epilogue",)),
+                               ("examples", examples, KERNELS),
                                ("MatCaffe + data-parallel", matcaffe_dp, ("decode_pose",)),
                                ("spatial", spatial, KERNELS)):
         idle = [k for k in need if counts[k] == 0]
@@ -4229,7 +4668,8 @@ def main() -> int:
     log(f"profiler checks: {len(PROFILER_FLAGS)} readings flagged"
         + "".join(f"\n  flagged: {f}" for f in PROFILER_FLAGS))
     paths = {"serving": serving, "int8 serving": int8, "training": training, "graph engine": graph,
-             "data slice": data, "MatCaffe + data-parallel": matcaffe_dp, "spatial": spatial,
+             "data slice": data, "examples": examples,
+             "MatCaffe + data-parallel": matcaffe_dp, "spatial": spatial,
              "engine training": engine}
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

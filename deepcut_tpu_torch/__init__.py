@@ -28,6 +28,9 @@ C++ rasterizer), held against the originals by tests/test_torch_data.py.
 
 - ``deepcut_tpu_torch.data``, ``proto``, ``runtime`` — the host input
   pipeline, the Caffe codecs and the C++ target rasterizer (own copies)
+- ``deepcut_tpu_torch.examples`` — the front ends of the repository's
+  ``examples/``: the pose HTTP service, the web demo, the classification,
+  detection and net-surgery scripts, pycaffe, the dataset makers, the notebooks
 
 Importing the package builds nothing: each CUDA kernel is compiled with
 ``nvcc`` at its first launch on a CUDA tensor, the rasterizer with ``g++``

@@ -6,7 +6,10 @@ A subprocess blocks `jax` and `deepcut_tpu` (``sys.modules[name] = None``
 makes every import of it raise), imports every module of
 `deepcut_tpu_torch`, runs one tiny
 CPU `estimate_pose` in bf16 and in int8 (calibrated on the frame), the demo
-CLI with and without --int8, trains one CPU step through the port's
+CLI with and without --int8, the pose service's default path
+(`examples.pose.serve.PoseApp` on the cached estimator, float and int8),
+`examples.classification`'s main on a tiny deploy net, trains one CPU
+step through the port's
 `train` verb, and drives the graph engine: a tiny DeeperCut prototxt
 through the serving chain with `quantize_int8`, the CLI's `time` and `test`
 verbs and a `Classifier` on examples/imagenet/caffenet_deploy.prototxt;
@@ -66,6 +69,17 @@ Image.fromarray(img[:, :, ::-1]).save(sys.argv[1])
 assert demo.main([sys.argv[1], "--device", "cpu", "--out_name", sys.argv[2]]) == 0
 assert demo.main([sys.argv[1], "--device", "cpu", "--int8", "--out_name", sys.argv[2] + ".int8.npz"]) == 0
 assert not est.is_int8  # the demo quantized a private estimator
+import io
+from deepcut_tpu_torch.examples.pose import serve
+png = io.BytesIO()
+Image.fromarray(img[:, :, ::-1]).save(png, format="PNG")
+app = serve.PoseApp(device="cpu")  # the service's default path: get_estimator's cached one
+assert app.est is est
+answer = app.estimate_bytes(png.getvalue())
+assert len(answer["pose"]) == 5 and len(answer["joints"]) == 3, answer
+app8 = serve.PoseApp(device="cpu", int8=True)  # a private copy, calibrated on the request
+assert len(app8.estimate_bytes(png.getvalue())["pose"]) == 5
+assert app8.est.is_int8 and not est.is_int8
 
 from deepcut_tpu_torch.tools import cli
 assert cli.main(["train", "-solver", sys.argv[3], "-weights", sys.argv[4], "-resnet", "50",
@@ -86,6 +100,12 @@ assert cli.main(["test", "-model", sys.argv[5], "-iterations", "1", "-device", "
 pred = Classifier(sys.argv[5], image_dims=(256, 256), raw_scale=255, device="cpu").predict(
     [np.random.RandomState(2).rand(300, 280, 3).astype(np.float32)])
 assert pred.shape == (1, 8) and abs(float(pred.sum()) - 1) < 1e-4, pred
+from deepcut_tpu_torch import compat
+from deepcut_tpu_torch.examples import classification
+with open("tiny.prototxt", "w") as f:
+    f.write(sys.argv[8])
+compat.Net("tiny.prototxt", compat.TEST, device="cpu").save("tiny.caffemodel")
+assert classification.main(["tiny.prototxt", "tiny.caffemodel", sys.argv[1], "--device", "cpu"]) == 0
 assert int8_conv.im2col_launches == int8_conv.epilogue_launches == conv_epilogue.launches == 0
 
 from deepcut_tpu_torch import compat
@@ -181,6 +201,15 @@ assert not {"jax", "deepcut_tpu"} & {m.split(".")[0] for m, mod in sys.modules.i
 print("SPATIAL_OK", flush=True)
 """
 
+TINY_DEPLOY = """
+input: "data"  input_shape { dim: 10 dim: 3 dim: 16 dim: 16 }
+layer { name: "c1" type: "Convolution" bottom: "data" top: "c1"
+  convolution_param { num_output: 4 kernel_size: 3 stride: 2 weight_filler { type: "xavier" } } }
+layer { name: "ip" type: "InnerProduct" bottom: "c1" top: "ip"
+  inner_product_param { num_output: 6 weight_filler { type: "xavier" } } }
+layer { name: "prob" type: "Softmax" bottom: "ip" top: "prob" }
+"""
+
 CONV_NET = """
 input: "data"  input_shape { dim: 2 dim: 3 dim: 16 dim: 16 }
 input: "label" input_shape { dim: 2 }
@@ -230,7 +259,7 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT, str(tmp_path / "f.png"), str(tmp_path / "p.npz"),
          str(solver), str(weights), str(REPO / "examples/imagenet/caffenet_deploy.prototxt"),
-         str(graph_solver), str(tmp_path / "data.prototxt")],
+         str(graph_solver), str(tmp_path / "data.prototxt"), TINY_DEPLOY],
         env=env, capture_output=True, text=True, timeout=300, cwd=str(tmp_path))
     assert proc.returncode == 0, proc.stdout + proc.stderr[-4000:]
     assert int(proc.stdout.split("modules")[-1]) >= 35
@@ -241,6 +270,7 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     assert (tmp_path / "p.npz_vis.png").is_file()
     assert np.load(tmp_path / "p.npz.int8.npz")["pose"].shape == (5, 3)
     assert "Testing net (#0)" in proc.stdout and (tmp_path / "g_iter_2.caffemodel").is_file()
+    assert f"{tmp_path / 'f.png'}\n  " in proc.stdout and "  class " in proc.stdout
     assert "Processed 2 files into db" in proc.stdout and "loss = " in proc.stdout.split("mean of")[-1]
 
 
