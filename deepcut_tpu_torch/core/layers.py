@@ -116,6 +116,13 @@ def param_spec(spec, bottom_shapes: List[Tuple[int, ...]]):
     return fn(spec, bottom_shapes) if fn else []
 
 
+def output_channels(spec, cin: Optional[int]) -> Optional[int]:
+    """A layer's top channels: a (de)convolution's num_output, else `cin`."""
+    if spec.type in ("Convolution", "Deconvolution"):
+        return conv_geometry(spec.param("convolution_param"))["num_output"]
+    return cin
+
+
 def registered_types() -> List[str]:
     """The layer types `build` implements, sorted."""
     return sorted(_BUILDERS)
@@ -311,12 +318,12 @@ def _relu(spec, phase, compute_dtype):
 
 @register("Sigmoid")
 def _sigmoid(spec, phase, compute_dtype):
-    return lambda p, b: torch.sigmoid(b[0])
+    return lambda p, b: act_ops.sigmoid(b[0])
 
 
 @register("TanH")
 def _tanh(spec, phase, compute_dtype):
-    return lambda p, b: torch.tanh(b[0])
+    return lambda p, b: act_ops.tanh(b[0])
 
 
 @register("ELU")
@@ -344,7 +351,7 @@ def _bnll(spec, phase, compute_dtype):
 
 @register("AbsVal")
 def _absval(spec, phase, compute_dtype):
-    return lambda p, b: torch.abs(b[0])
+    return lambda p, b: act_ops.absval(b[0])
 
 
 @register("Power")
@@ -399,8 +406,8 @@ def _pooling(spec, phase, compute_dtype):
     method = pp.get_str("pool", "MAX")
     if pp.get_bool("global_pooling", False):
         if method == "MAX":
-            return lambda p, b: b[0].amax(dim=(2, 3), keepdim=True)
-        return lambda p, b: b[0].mean(dim=(2, 3), keepdim=True)
+            return lambda p, b: pool_ops.global_max_pool2d(b[0])
+        return lambda p, b: pool_ops.global_avg_pool2d(b[0])
     ks = pp.get_int("kernel_size", 0)
     kernel = (pp.get_int("kernel_h") or ks, pp.get_int("kernel_w") or ks)
     stride = (pp.get_int("stride_h") or pp.get_int("stride", 1),
@@ -411,12 +418,10 @@ def _pooling(spec, phase, compute_dtype):
         return lambda p, b: pool_ops.max_pool2d(b[0], kernel=kernel, stride=stride, pad=pad)
     if method == "STOCHASTIC":
         if phase != "TRAIN":
-            return lambda p, b: pool_ops.stochastic_pool2d_test(b[0], kernel=kernel, stride=stride)
+            return lambda p, b: pool_ops.stochastic_pool2d(b[0], kernel=kernel, stride=stride)
 
         def fn(p, b, gen=None):
-            if gen is None:
-                return pool_ops.stochastic_pool2d_test(b[0], kernel=kernel, stride=stride)
-            return pool_ops.stochastic_pool2d_train(b[0], gen, kernel=kernel, stride=stride)
+            return pool_ops.stochastic_pool2d(b[0], gen, kernel=kernel, stride=stride, train=True)
         fn.needs_rng = True
         return fn
     return lambda p, b: pool_ops.avg_pool2d(b[0], kernel=kernel, stride=stride, pad=pad)
@@ -451,7 +456,7 @@ def _concat(spec, phase, compute_dtype):
     axis = cp.get_int("concat_dim", None)
     if axis is None:
         axis = cp.get_int("axis", 1)
-    return lambda p, b: torch.cat(b, dim=axis)
+    return lambda p, b: elt_ops.concat(b, axis=axis)
 
 
 @register("Slice")
@@ -468,7 +473,7 @@ def _slice(spec, phase, compute_dtype):
 @register("Split")
 def _split(spec, phase, compute_dtype):
     n = len(spec.tops)
-    return lambda p, b: [b[0]] * n
+    return lambda p, b: elt_ops.split_op(b[0], n)
 
 
 @register("Flatten")

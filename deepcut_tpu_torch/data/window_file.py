@@ -1,8 +1,7 @@
 """Window-file and joint-stats-file parsers.
 
 The port's own copy of `deepcut_tpu.data.window_file` (jax-free; held against the original
-by tests/test_torch_data.py). The writer `write_window_file`, dataset
-tooling the port does not reach, is left out.
+by tests/test_torch_data.py and tests/test_torch_surface_parity.py).
 
 Window file format (reference: pose_data_layer.cpp:146-207):
 
@@ -19,7 +18,7 @@ edges (182x2, 1-based class pairs), means (182x2), std_devs (182x2).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -78,6 +77,23 @@ def parse_window_file(path: str, root_folder: str = "") -> List[ImageRecord]:
             people.append(Person(classes, xy))
         records.append(ImageRecord(root_folder + img_path, channels, height, width, people, multi))
     return records
+
+
+def write_window_file(path: str, records: Sequence[ImageRecord]) -> None:
+    """Inverse of parse_window_file (for tests / dataset tooling)."""
+    lines = []
+    for idx, r in enumerate(records):
+        lines.append(f"# {idx}")
+        if r.multi:
+            lines.append(f"multi {len(r.people)}")
+        lines.append(r.path)
+        lines.append(f"{r.channels} {r.height} {r.width}")
+        for p in r.people:
+            lines.append(str(len(p.classes)))
+            for c, (x, y) in zip(p.classes, p.xy):
+                lines.append(f"{int(c)} {float(x)} {float(y)}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
 
 
 @dataclasses.dataclass

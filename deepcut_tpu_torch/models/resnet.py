@@ -415,6 +415,21 @@ def forward(params: Mapping, x: torch.Tensor, cfg: DeeperCutConfig = DeeperCutCo
                          heads=heads, folded=folded)
 
 
+def make_forward(cfg: DeeperCutConfig = DeeperCutConfig(), *, folded: bool = True,
+                 heads: Optional[Sequence[str]] = None):
+    """The forward as a function ``(params, x) -> outputs`` (`forward` with
+    `folded` and `heads` bound), the JAX package's entry. params and x are
+    in this module's layouts (OIHW, NCHW).
+
+    heads: optional head subset (see `compute_heads`): serving entry points
+    that decode pose and locref only pass ("pose", "locref")."""
+
+    def fn(params: Mapping, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return forward(params, x, cfg, folded=folded, heads=heads)
+
+    return fn
+
+
 # --------------------------------------------------------------------------
 # The module
 # --------------------------------------------------------------------------

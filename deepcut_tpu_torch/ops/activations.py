@@ -26,6 +26,14 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid(x)
 
 
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(x)
+
+
+def absval(x: torch.Tensor) -> torch.Tensor:
+    return torch.abs(x)
+
+
 def const(v: float, x: torch.Tensor) -> torch.Tensor:
     """A scalar in x's dtype and device (a 0-dim tensor, which keeps x's
     dtype), filled on the device: `torch.tensor` would copy it from the

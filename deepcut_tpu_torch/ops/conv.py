@@ -34,6 +34,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from deepcut_tpu_torch.core.fillers import bilinear
 from deepcut_tpu_torch.ops.conv_epilogue import conv_epilogue
 
 
@@ -177,3 +178,13 @@ def deconv2d_rounded(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor]
     y = exact_conv(x, w, stride=stride, pad=pad, dilation=dilation, groups=groups,
                    transposed=True)
     return conv_epilogue(y, b)
+
+
+def bilinear_filler(kh: int, kw: int, cin: int, cout: int,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Bilinear upsampling kernel (reference: include/caffe/filler.hpp:219-290)
+    as a deconv weight in this module's layout, ``(cin, cout, kh, kw)``:
+    channel i -> i with the interpolation stencil, for i < min(cin, cout)
+    (`core.fillers.bilinear`). The JAX package's ``(kh, kw, cin, cout)``
+    is its transpose."""
+    return bilinear((cin, cout, kh, kw)).to(dtype)

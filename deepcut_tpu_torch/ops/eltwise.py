@@ -62,6 +62,10 @@ def eltwise_max(inputs: Sequence[torch.Tensor]) -> torch.Tensor:
     return out
 
 
+def concat(inputs: Sequence[torch.Tensor], *, axis: int) -> torch.Tensor:
+    return torch.cat(list(inputs), dim=axis)
+
+
 def slice_op(x: torch.Tensor, *, axis: int, slice_points: Sequence[int], num_outputs: int):
     """Caffe Slice layer: split along axis at slice_points (or evenly)."""
     size = x.shape[axis]
@@ -87,6 +91,11 @@ def flatten_op(x: torch.Tensor, *, axis: int = 1, end_axis: int = -1) -> torch.T
     axis = axis + nd if axis < 0 else axis
     end_axis = end_axis + nd if end_axis < 0 else end_axis
     return x.reshape(list(x.shape[:axis]) + [-1] + list(x.shape[end_axis + 1:]))
+
+
+def split_op(x: torch.Tensor, num: int):
+    """Caffe Split layer: identity fan-out (autograd sums the tops' gradients)."""
+    return [x] * num
 
 
 def batch_reindex(x: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:

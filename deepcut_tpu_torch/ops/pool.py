@@ -20,12 +20,14 @@ in the trajectory; tests/test_torch_training.py holds it against the JAX
 package with planted ties, and chip_smoke.py against a plain first-max
 scatter on the card.
 
-The graph engine's pooling (`max_pool2d`, `avg_pool2d`,
-`stochastic_pool2d_test`, `stochastic_pool2d_train`) takes any Caffe
-geometry, square or (h, w).
+The graph engine's pooling (`max_pool2d`, `avg_pool2d`, `stochastic_pool2d`
+with its two forms) takes any Caffe geometry, square or (h, w); global
+pooling reduces H and W.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -133,3 +135,22 @@ def stochastic_pool2d_train(x: torch.Tensor, gen: torch.Generator, *, kernel,
         out = torch.where(take, v, out)
         picked = picked | take
     return out.to(x.dtype)
+
+
+def stochastic_pool2d(x: torch.Tensor, gen: Optional[torch.Generator] = None, *, kernel,
+                      stride=1, train: bool = False) -> torch.Tensor:
+    """STOCHASTIC pooling in one entry, the JAX package's signature with a
+    generator (on x's device) for its key: `stochastic_pool2d_train` when
+    `train` and a generator are given, else `stochastic_pool2d_test`."""
+    if train and gen is not None:
+        return stochastic_pool2d_train(x, gen, kernel=kernel, stride=stride)
+    return stochastic_pool2d_test(x, kernel=kernel, stride=stride)
+
+
+def global_avg_pool2d(x: torch.Tensor) -> torch.Tensor:
+    """Global average pooling (Caffe global_pooling: true): (N, C, 1, 1)."""
+    return x.mean(dim=(2, 3), keepdim=True)
+
+
+def global_max_pool2d(x: torch.Tensor) -> torch.Tensor:
+    return x.amax(dim=(2, 3), keepdim=True)

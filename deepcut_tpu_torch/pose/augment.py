@@ -1,8 +1,7 @@
 """Rotation + scale augmentation (reference: src/caffe/pose/transform_image.cpp).
 
 The port's own copy of `deepcut_tpu.pose.augment` (jax-free; held against the original
-by tests/test_torch_data.py). `augment_record`, which the port does not
-reach, is left out.
+by tests/test_torch_data.py and tests/test_torch_surface_parity.py).
 
 The reference utility (dormant there — no callers) warps the image about the
 joint bounding-box centre with smooth border extrapolation toward the mean
@@ -86,7 +85,7 @@ def draw_affine(
     max_rotation_deg: float = 15.0,
     scale_range: Tuple[float, float] = (0.85, 1.15),
 ) -> Tuple[Optional[np.ndarray], ImageRecord]:
-    """The RNG phase of the JAX package's augment_record: draw (angle, scale), build the 2x3
+    """The RNG phase of augment_record: draw (angle, scale), build the 2x3
     transform and the joint-transformed record. Image-independent, so the
     expensive warp can run on a worker thread while the RNG stream stays
     bit-identical to the serial path (data/pipeline.py workers>0)."""
@@ -144,3 +143,21 @@ def device_warp_coef(
     c = B[1, 2] - b * B[0, 2]
     return (np.array([a, b, c, d, e, f], np.float32),
             np.array([nh, nw], np.float32))
+
+
+def augment_record(
+    record: ImageRecord,
+    image: np.ndarray,
+    rng: np.random.RandomState,
+    *,
+    max_rotation_deg: float = 15.0,
+    scale_range: Tuple[float, float] = (0.85, 1.15),
+) -> Tuple[np.ndarray, ImageRecord]:
+    """Random rotation+scale about the joint-bbox centre;
+    returns (warped image, record with transformed joints)."""
+    M, new_rec = draw_affine(record, rng, max_rotation_deg=max_rotation_deg,
+                             scale_range=scale_range)
+    if M is None:
+        return image, record
+    warped = warp_image(image, M, image.shape[:2]).astype(np.uint8)
+    return warped, new_rec

@@ -1,9 +1,7 @@
 """Training-target rasterizer: keypoint annotations -> dense stride-8 maps.
 
 The port's own copy of `deepcut_tpu.pose.targets` (jax-free; held against the original
-by tests/test_torch_data.py). The loop oracle
-`rasterize_reference` stays in the JAX package, whose tests hold
-`rasterize` against it.
+by tests/test_torch_data.py and tests/test_torch_surface_parity.py).
 
 Reimplements the PoseDataLayer target construction
 (src/caffe/layers/pose_data_layer.cpp:676-855) semantics:
@@ -19,10 +17,10 @@ Reimplements the PoseDataLayer target construction
 - negatives: either class-weight maps down-weighting background by
   ``(1-fg)/fg * P/N`` or fg_fraction-limited random negative sampling.
 
-Two implementations ship here: `rasterize` (vectorized numpy, the semantic
-oracle) and `rasterize_native` (the C++ rasterizer of `runtime`, which the
-input pipeline calls; it takes the numpy path where no C++ compiler is at
-hand).
+Three implementations ship here: `rasterize_reference` (naive loops, the
+oracle, mirrors the C++ control flow), `rasterize` (vectorized numpy) and
+`rasterize_native` (the C++ rasterizer of `runtime`, which the input
+pipeline calls; it takes the numpy path where no C++ compiler is at hand).
 
 Output layout is NHWC-style (h, w, C), the JAX package's; channels are
 identical in order to the reference's NCHW blobs.
@@ -92,6 +90,187 @@ def accepts(cfg: TargetConfig, height: int, width: int, scale: float) -> bool:
         return False
     _, _, ih, iw = grid_geometry(height, width, scale)
     return ih * iw <= cfg.max_input_size ** 2
+
+
+# --------------------------------------------------------------------------
+# Reference (naive) implementation — the test oracle
+# --------------------------------------------------------------------------
+
+
+def rasterize_reference(
+    record: ImageRecord,
+    cfg: TargetConfig,
+    stats: Optional[JointStats] = None,
+    rng: Optional[np.random.RandomState] = None,
+    scale: Optional[float] = None,
+) -> Dict[str, np.ndarray]:
+    if stats is None:
+        stats = default_stats(cfg.num_classes)
+    if rng is None:
+        rng = np.random.RandomState(0)
+    if scale is None:
+        scale = sample_scale(cfg, rng)
+    J = cfg.num_classes
+    sh, sw, ih, iw = grid_geometry(record.height, record.width, scale)
+    th = math.ceil(round(record.height * scale) / STRIDE)
+    tw = math.ceil(round(record.width * scale) / STRIDE)
+    C = cfg.label_channels
+    first = 1 if cfg.no_bg_class else 0
+
+    labels = np.full((sh, sw, C), IGNORE_VALUE, np.float32)
+    weights = np.ones((sh, sw, C), np.float32)
+    loc_t = np.zeros((sh, sw, 2 * J), np.float32)
+    loc_w = np.zeros((sh, sw, 2 * J), np.float32)
+    E = len(stats.edges)
+    next_t = np.zeros((sh, sw, 2 * E), np.float32)
+    next_w = np.zeros((sh, sw, 2 * E), np.float32)
+    sample_mask = np.zeros((sh, sw), bool)
+    min_distance = np.full((sh, sw), np.finfo(np.float32).max, np.float32)
+
+    people = record.people
+    joint_index = []  # per person: class -> index in their list (-1 absent)
+    for p in people:
+        ji = np.full((J,), -1, np.int32)
+        for k, cls in enumerate(p.classes):
+            if 1 <= cls <= J:
+                ji[cls - 1] = k
+        joint_index.append(ji)
+
+    num_positives = 0
+    for j in range(th):
+        for i in range(tw):
+            pt = np.array([i * STRIDE + HALF_STRIDE, j * STRIDE + HALF_STRIDE],
+                          np.float32) / scale
+            scores = np.zeros((cfg.skip_class + 1,), np.float32)
+            dists = np.full((J,), np.finfo(np.float32).max, np.float32)
+            person_dists = np.full((J,), -1, np.int32)
+            diffs = np.zeros((J, 2), np.float32)
+            min_dist = np.finfo(np.float32).max
+            closest_joint = -1
+            skip_sample = False
+            for pidx, p in enumerate(people):
+                for k in range(len(p.classes)):
+                    cls = int(p.classes[k])
+                    diff = p.xy[k] - pt
+                    dist = float(np.sqrt(np.dot(diff, diff)))
+                    jid = cls - 1
+                    if cls != cfg.skip_class and dist < dists[jid]:
+                        if cfg.soft_labels:
+                            scores[cls] = math.exp(-dist * dist / (2 * cfg.gauss_blob_sigma ** 2))
+                        else:
+                            scores[cls] = 1.0 if dist <= cfg.fg_threshold else 0.0
+                        dists[jid] = dist
+                        person_dists[jid] = pidx
+                        diffs[jid] = diff * scale
+                    elif cls == cfg.skip_class:
+                        # reference updates scores/dists for skip class too,
+                        # but never diffs (pose_data_layer.cpp:697-706)
+                        if cfg.soft_labels:
+                            sc = math.exp(-dist * dist / (2 * cfg.gauss_blob_sigma ** 2))
+                        else:
+                            sc = 1.0 if dist <= cfg.fg_threshold else 0.0
+                        scores[cls] = max(scores[cls], sc)
+                    if dist < min_dist:
+                        min_dist = dist
+                        closest_joint = cls
+                    if cls == cfg.skip_class and scores[cls] > FG_SCORE_THRESH:
+                        skip_sample = True
+            min_distance[j, i] = min_dist
+            scores[0] = 1 - scores[closest_joint] if closest_joint >= 0 else 1.0
+
+            is_fg = (scores[0] <= 1 - FG_SCORE_THRESH) if cfg.soft_labels \
+                else (min_dist <= cfg.fg_threshold)
+            if is_fg:
+                num_positives += 1
+            if is_fg or skip_sample:
+                sample_mask[j, i] = True
+            if skip_sample:
+                continue
+            if cfg.fg_fraction is not None and not is_fg:
+                continue
+            if not cfg.soft_labels and not cfg.multi_label:
+                curr = closest_joint if is_fg else 0
+                for cls in range(J + 1):
+                    scores[cls] = 1.0 if cls == curr else 0.0
+            for cls in range(first, J + 1):
+                labels[j, i, cls - first] = scores[cls]
+            if is_fg and cfg.location_refinement:
+                for cls in range(1, J + 1):
+                    if scores[cls] < FG_SCORE_THRESH:
+                        continue
+                    jid = cls - 1
+                    loc_t[j, i, 2 * jid:2 * jid + 2] = diffs[jid] / LOCREF_STD
+                    loc_w[j, i, 2 * jid:2 * jid + 2] = 1.0
+            if is_fg and cfg.regress_to_other:
+                for l in range(E):
+                    cls, next_cls = int(stats.edges[l, 0]), int(stats.edges[l, 1])
+                    if scores[cls] < FG_SCORE_THRESH:
+                        continue
+                    pidx = int(person_dists[cls - 1])
+                    if pidx < 0:
+                        continue
+                    nj = int(joint_index[pidx][next_cls - 1])
+                    if nj < 0:
+                        continue
+                    nxt = people[pidx].xy[nj]
+                    d = (nxt - pt) * scale
+                    next_t[j, i, 2 * l] = (d[0] - stats.means[l, 0]) / stats.std_devs[l, 0]
+                    next_t[j, i, 2 * l + 1] = (d[1] - stats.means[l, 1]) / stats.std_devs[l, 1]
+                    next_w[j, i, 2 * l:2 * l + 2] = 1.0
+
+    _fill_negatives(cfg, labels, weights, sample_mask, min_distance,
+                    num_positives, th, tw, rng, first)
+    out = {
+        "part_score_targets": labels,
+        "part_score_weights": weights,
+        "scale": np.float32(scale),
+        "input_size": np.array([ih, iw], np.int32),
+    }
+    if cfg.location_refinement:
+        out["locref_targets"] = loc_t
+        out["locref_weights"] = loc_w
+    if cfg.regress_to_other:
+        out["pairwise_targets"] = next_t
+        out["pairwise_weights"] = next_w
+    return out
+
+
+def _fill_negatives(cfg, labels, weights, sample_mask, min_distance,
+                    num_positives, th, tw, rng, first):
+    """weight_targets / fg_fraction negative handling
+    (pose_data_layer.cpp:806-855)."""
+    J = cfg.num_classes
+    sh, sw = labels.shape[:2]
+    if cfg.weight_targets:
+        total = sh * sw
+        neg = max(total - num_positives, 1)
+        w = ((1 - (cfg.fg_fraction or 0.25)) / (cfg.fg_fraction or 0.25)
+             * num_positives / neg)
+        for j in range(sh):
+            for i in range(sw):
+                if sample_mask[j, i]:
+                    continue
+                for c in range(first, J + 1):
+                    labels[j, i, c - first] = 1.0 if c == 0 else 0.0
+                    weights[j, i, c - first] = w
+    elif cfg.fg_fraction is not None:
+        max_neg = int(num_positives * (1.0 - cfg.fg_fraction) / cfg.fg_fraction)
+        num_neg = 0
+        for _ in range(max_neg * 10):
+            j = int(rng.randint(0, th))
+            i = int(rng.randint(0, tw))
+            if sample_mask[j, i]:
+                continue
+            if cfg.bg_threshold is not None and min_distance[j, i] <= cfg.bg_threshold:
+                continue
+            for c in range(first, J + 1):
+                labels[j, i, c - first] = 1.0 if c == 0 else 0.0
+            sample_mask[j, i] = True
+            num_neg += 1
+            if num_neg == max_neg:
+                break
+
+
 
 
 def sample_scale(cfg: TargetConfig, rng: np.random.RandomState) -> float:

@@ -2,7 +2,8 @@
 
 The port's own copy of `deepcut_tpu.runtime`: the same `rasterizer.cpp`,
 built with g++ at its first use into ``build/deepcut_tpu_torch/`` (see
-`deepcut_tpu_torch.native`) instead of beside the source. It is a host
+`deepcut_tpu_torch.native`) instead of beside the source, or ahead of it
+by ``python -m deepcut_tpu_torch.runtime.build``. It is a host
 path: `pose.targets.rasterize_native` calls it, and where no g++ is found
 it takes the numpy implementation, which stays the semantic oracle.
 """
@@ -15,9 +16,9 @@ import threading
 from pathlib import Path
 from typing import Optional
 
-from deepcut_tpu_torch.native import NativeLib, build
+from deepcut_tpu_torch import native
 
-LIB = NativeLib(Path(__file__).resolve().parent / "rasterizer.cpp",
+LIB = native.NativeLib(Path(__file__).resolve().parent / "rasterizer.cpp",
                 ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"),
                 lambda: "g++")
 
@@ -35,7 +36,7 @@ def load_library() -> Optional[ctypes.CDLL]:
         if shutil.which("g++") is None:
             _TRIED = True
             return None
-        lib = ctypes.CDLL(str(build(LIB)[0]))
+        lib = ctypes.CDLL(str(native.build(LIB)[0]))
         import numpy as np
         from numpy.ctypeslib import ndpointer
 

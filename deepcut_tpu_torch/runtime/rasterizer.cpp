@@ -6,8 +6,8 @@
 // pose_data_layer.cpp:676-804). Negative sampling stays in Python so the
 // RNG stream matches the reference exactly.
 //
-// Build: python -m deepcut_tpu.runtime.build   (g++ -O3 -shared -fPIC)
-// ABI: plain C, loaded via ctypes (deepcut_tpu/runtime/__init__.py).
+// Build: python -m deepcut_tpu_torch.runtime.build   (g++ -O3 -shared -fPIC)
+// ABI: plain C, loaded via ctypes (deepcut_tpu_torch/runtime/__init__.py).
 //
 // Layout: all maps are HWC row-major float32, matching the numpy arrays.
 
