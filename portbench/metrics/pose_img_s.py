@@ -1,0 +1,7 @@
+"""Frames whose poses came back, per second of the window."""
+
+from portbench.readers import rate
+
+
+def read(rec):
+    return rate(rec)
