@@ -21,6 +21,10 @@ Two ways to run a net, as in the JAX package:
   `quantize_i8`, `int8_im2col` (or the int8 input itself), `torch._int_mm`
   and `int8_epilogue` (`ops.int8_conv`).
 
+While a torch profiler records, each plan step of a run records a
+``graph.<layer>`` span and each `make_forward` call a ``graph.forward``
+span around them (`deepcut_tpu_torch.spans`).
+
 Training, as the JAX package's (`deepcut_tpu.core.graph`, graph.py:906-1190):
 `total_loss`, `make_train_step` (forward, autograd backward, the Caffe
 update rule of `solver.update_rules` with per-blob lr / decay mults,
@@ -58,6 +62,7 @@ from deepcut_tpu_torch.core import layers as L
 from deepcut_tpu_torch.ops.norm import scaled_stats
 from deepcut_tpu_torch.proto import text_format
 from deepcut_tpu_torch.proto.text_format import PbNode
+from deepcut_tpu_torch.spans import GRAPH_FORWARD, layer_span, span
 
 BF16 = torch.bfloat16
 
@@ -92,11 +97,12 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 class LayerSpec:
     """Static description of one layer: type, wiring, config node."""
 
-    __slots__ = ("name", "type", "bottoms", "tops", "node", "param_specs")
+    __slots__ = ("name", "type", "bottoms", "tops", "node", "param_specs", "span")
 
     def __init__(self, node: PbNode):
         self.node = node
         self.name = node.get_str("name", "")
+        self.span = layer_span(self.name)  # the profiler span of its plan step
         self.type = _V1_TYPE_NAMES.get(node.get_str("type", ""), node.get_str("type", ""))
         self.bottoms = [str(b) for b in node.get_list("bottom")]
         self.tops = [str(t) for t in node.get_list("top")]
@@ -731,21 +737,22 @@ class Net:
                 bottoms = [b.detach() if i < len(pdown) and not pdown[i] else b
                            for i, b in enumerate(bottoms)]
             entry = self._entry(params, spec.name)
-            if dynamic and getattr(fn, "host_dynamic", None) is not None:
-                outs = fn.host_dynamic(entry, bottoms)
-            elif getattr(fn, "bn_train", False):
-                y, new = batch_norm_train(
-                    bottoms[0], BNStats(entry["mean"], entry["var"],
-                                        entry["scale_factor"].reshape(())),
-                    eps=fn.bn_eps, momentum=fn.bn_momentum)
-                if collect_updates is not None:
-                    collect_updates[spec.name] = {"mean": new.mean, "var": new.var,
-                                                  "scale_factor": new.scale_factor.reshape(1)}
-                outs = y
-            else:
-                gen = (self._draws(*rng, idx + rng_offset)
-                       if rng is not None and getattr(fn, "needs_rng", False) else None)
-                outs = _call(fn, entry, bottoms, gen, self.device)
+            with span(spec.span):
+                if dynamic and getattr(fn, "host_dynamic", None) is not None:
+                    outs = fn.host_dynamic(entry, bottoms)
+                elif getattr(fn, "bn_train", False):
+                    y, new = batch_norm_train(
+                        bottoms[0], BNStats(entry["mean"], entry["var"],
+                                            entry["scale_factor"].reshape(())),
+                        eps=fn.bn_eps, momentum=fn.bn_momentum)
+                    if collect_updates is not None:
+                        collect_updates[spec.name] = {"mean": new.mean, "var": new.var,
+                                                      "scale_factor": new.scale_factor.reshape(1)}
+                    outs = y
+                else:
+                    gen = (self._draws(*rng, idx + rng_offset)
+                           if rng is not None and getattr(fn, "needs_rng", False) else None)
+                    outs = _call(fn, entry, bottoms, gen, self.device)
             sticky = getattr(fn, "sticky_tops", ())
             for i_top, (top, val) in enumerate(
                     zip(spec.tops, outs if isinstance(outs, (list, tuple)) else [outs])):
@@ -774,11 +781,12 @@ class Net:
         outs = list(outputs) if outputs else self.output_names()
 
         def fwd(params, inputs):
-            prepared = self._prepare(params)
-            with torch.inference_mode():
-                blobs = self._execute(prepared, self.stage_inputs(inputs))
-                return {k: blobs[k].float() if blobs[k].is_floating_point() else blobs[k]
-                        for k in outs}
+            with span(GRAPH_FORWARD):
+                prepared = self._prepare(params)
+                with torch.inference_mode():
+                    blobs = self._execute(prepared, self.stage_inputs(inputs))
+                    return {k: blobs[k].float() if blobs[k].is_floating_point() else blobs[k]
+                            for k in outs}
         return fwd
 
     def stage_inputs(self, inputs) -> Dict[str, torch.Tensor]:

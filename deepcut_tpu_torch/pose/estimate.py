@@ -17,6 +17,12 @@ device-resident bilinear matrices. The tiling plan is the JAX package's
 stride-aligned one (see `_tile_plan`). `PoseEstimator.quantize_int8`
 switches every path to the int8 model (`models.quantize`).
 
+While a torch profiler records, each public method records a ``pose.call``
+span, and inside it ``pose.canvas`` (a frame's upload and preprocess),
+``pose.net`` (a network call), ``pose.decode`` (a decode launch) and
+``pose.wait`` (the copy back that waits on the device) spans
+(`deepcut_tpu_torch.spans`).
+
 With a ``mesh`` (`parallel.mesh.make_mesh`, a 'spatial' axis of S ranks)
 frames up to S * max_size rows are computed full-frame with their rows
 split over the axis (`parallel.spatial.RowShards`: halo exchange, the
@@ -38,6 +44,8 @@ from deepcut_tpu_torch.models.resnet import (
     DeeperCut, DeeperCutConfig, Params, cast_params, deepercut_config, fold_bn)
 from deepcut_tpu_torch.ops import cuda_decode
 from deepcut_tpu_torch.pose.decode import STRIDE
+from deepcut_tpu_torch.spans import (
+    POSE_CALL, POSE_CANVAS, POSE_DECODE, POSE_NET, POSE_WAIT, span)
 
 PAD_SIZE = 64                     # estimate_pose.py:89
 MAX_SIZE = 700                    # _MAX_SIZE, estimate_pose.py:29
@@ -225,13 +233,14 @@ class PoseEstimator:
     def _canvas(self, image: np.ndarray, scale: float, canvas_h: int,
                 canvas_w: int) -> torch.Tensor:
         """Host frame -> (1, canvas_h, canvas_w, 3) f32 canvas on the device."""
-        h, w = image.shape[:2]
-        out_h, out_w = _resized_size(h, scale), _resized_size(w, scale)
-        u8 = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
-        mats = None
-        if (out_h, out_w) != (h + PAD_SIZE, w + PAD_SIZE):
-            mats = (self._matrix(h + PAD_SIZE, out_h), self._matrix(w + PAD_SIZE, out_w))
-        return preprocess_on_device(u8, out_h, out_w, canvas_h, canvas_w, mats)
+        with span(POSE_CANVAS):
+            h, w = image.shape[:2]
+            out_h, out_w = _resized_size(h, scale), _resized_size(w, scale)
+            u8 = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
+            mats = None
+            if (out_h, out_w) != (h + PAD_SIZE, w + PAD_SIZE):
+                mats = (self._matrix(h + PAD_SIZE, out_h), self._matrix(w + PAD_SIZE, out_w))
+            return preprocess_on_device(u8, out_h, out_w, canvas_h, canvas_w, mats)
 
     def _maps(self, canvases: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(N, H, W, 3) f32 canvases -> prob (N, J, h, w), loc (N, 2J, h, w),
@@ -248,7 +257,7 @@ class PoseEstimator:
                              RowPlan.for_heights(s, trunk_heights(h, self.cfg)))
             lo, hi = split_rows(h, s)[self.mesh.spatial_index]
             canvases = canvases[:, lo:hi]
-        with torch.inference_mode():
+        with torch.inference_mode(), span(POSE_NET):
             outs = self.model(canvases.permute(0, 3, 1, 2), heads=HEADS, rows=rows)
         return outs["prob"], outs["loc_pred"]
 
@@ -258,8 +267,10 @@ class PoseEstimator:
         (a row-cropped map, the pyramid's average), their sizes passed by
         value, so on the card this is one kernel launch."""
         h, w = prob.shape[1:]
-        pose = cuda_decode.decode_pose(prob[None], loc[None], [h], [w], scale)
-        return pose[0].cpu().numpy()
+        with span(POSE_DECODE):
+            pose = cuda_decode.decode_pose(prob[None], loc[None], [h], [w], scale)
+        with span(POSE_WAIT):
+            return pose[0].cpu().numpy()
 
     def _batched(self, canvases: torch.Tensor, valid_h: Sequence[int],
                  valid_w: Sequence[int], scale: float) -> np.ndarray:
@@ -271,15 +282,17 @@ class PoseEstimator:
         c, stride = self.BATCH_CHUNK, int(STRIDE)
         poses = []
         for i in range(0, canvases.shape[0], c):
-            with torch.inference_mode():
+            with torch.inference_mode(), span(POSE_NET):
                 fused = self.model.fused_heads(canvases[i:i + c].permute(0, 3, 1, 2), heads=HEADS)
             # a no-op for the serving heads (f32, channels_last); the
             # training forwards' eval may hand bf16 or another layout
             fused = fused.to(torch.float32, memory_format=torch.channels_last)
-            poses.append(cuda_decode.decode_fused(
-                fused, self.cfg.num_joints, [-(-int(v) // stride) for v in valid_h[i:i + c]],
-                [-(-int(v) // stride) for v in valid_w[i:i + c]], scale))
-        return torch.cat(poses).cpu().numpy()
+            with span(POSE_DECODE):
+                poses.append(cuda_decode.decode_fused(
+                    fused, self.cfg.num_joints, [-(-int(v) // stride) for v in valid_h[i:i + c]],
+                    [-(-int(v) // stride) for v in valid_w[i:i + c]], scale))
+        with span(POSE_WAIT):
+            return torch.cat(poses).cpu().numpy()
 
     # -- public API --------------------------------------------------------
     def estimate_pose(self, image: np.ndarray, scales: Optional[Sequence[float]] = None
@@ -288,13 +301,14 @@ class PoseEstimator:
         [x, y, conf, off_y, off_x], best scale by min-confidence, or None
         when every scale's lowest joint confidence is exactly 0 (the
         reference starts its best confidence at 0)."""
-        best_pose, best_conf = None, 0.0
-        for s in scales or [1.0]:
-            pose = self._estimate_single_scale(image, s)
-            minconf = float(np.min(pose[2]))
-            if minconf > best_conf:
-                best_conf, best_pose = minconf, pose
-        return best_pose
+        with span(POSE_CALL):
+            best_pose, best_conf = None, 0.0
+            for s in scales or [1.0]:
+                pose = self._estimate_single_scale(image, s)
+                minconf = float(np.min(pose[2]))
+                if minconf > best_conf:
+                    best_conf, best_pose = minconf, pose
+            return best_pose
 
     def _max_dims(self) -> Tuple[int, int]:
         """The largest canvas (rows, columns) computed whole: a spatial axis
@@ -317,17 +331,18 @@ class PoseEstimator:
         """Batched inference for same-size frames (video serving); returns
         (N, 5, J). All frames must share H x W and fit one canvas. With a
         mesh each frame takes the row-sharded single path."""
-        h, w = images[0].shape[:2]
-        for im in images:
-            if im.shape[:2] != (h, w):
-                raise ValueError("estimate_pose_batch needs equal frame sizes")
-        if self.mesh is not None:
-            return np.stack([self._estimate_single_scale(im, scale) for im in images])
-        ch, cw = canvas_size(h, scale), canvas_size(w, scale)
-        bh, bw = _bucket(ch, self.bucket_step), _bucket(cw, self.bucket_step)
-        canvases = torch.cat([self._canvas(im, scale, bh, bw) for im in images])
-        n = len(images)
-        return self._batched(canvases, [ch] * n, [cw] * n, scale)
+        with span(POSE_CALL):
+            h, w = images[0].shape[:2]
+            for im in images:
+                if im.shape[:2] != (h, w):
+                    raise ValueError("estimate_pose_batch needs equal frame sizes")
+            if self.mesh is not None:
+                return np.stack([self._estimate_single_scale(im, scale) for im in images])
+            ch, cw = canvas_size(h, scale), canvas_size(w, scale)
+            bh, bw = _bucket(ch, self.bucket_step), _bucket(cw, self.bucket_step)
+            canvases = torch.cat([self._canvas(im, scale, bh, bw) for im in images])
+            n = len(images)
+            return self._batched(canvases, [ch] * n, [cw] * n, scale)
 
     def estimate_pose_many(self, images: Sequence[np.ndarray],
                            scale: float = 1.0) -> np.ndarray:
@@ -337,49 +352,51 @@ class PoseEstimator:
         single path. Returns (N, 5, J) in input order; per-image results
         equal estimate_pose(image, [scale]) up to the batch's rounding. With
         a mesh each frame takes the row-sharded single path."""
-        out = np.zeros((len(images), 5, self.cfg.num_joints), np.float32)
-        if self.mesh is not None:
+        with span(POSE_CALL):
+            out = np.zeros((len(images), 5, self.cfg.num_joints), np.float32)
+            if self.mesh is not None:
+                for idx, im in enumerate(images):
+                    out[idx] = self._estimate_single_scale(im, scale)
+                return out
+            groups: Dict[Tuple[int, int], list] = {}
             for idx, im in enumerate(images):
-                out[idx] = self._estimate_single_scale(im, scale)
+                h, w = im.shape[:2]
+                ch, cw = canvas_size(h, scale), canvas_size(w, scale)
+                if ch > self.max_size or cw > self.max_size:  # HD: tiled single path
+                    out[idx] = self._estimate_single_scale(im, scale)
+                    continue
+                bh, bw = _bucket(ch, self.bucket_step), _bucket(cw, self.bucket_step)
+                groups.setdefault((bh, bw), []).append((idx, im, ch, cw))
+            for (bh, bw), items in groups.items():
+                canvases = torch.cat([self._canvas(im, scale, bh, bw) for _, im, _, _ in items])
+                poses = self._batched(canvases, [it[2] for it in items],
+                                      [it[3] for it in items], scale)
+                for slot, (idx, *_rest) in enumerate(items):
+                    out[idx] = poses[slot]
             return out
-        groups: Dict[Tuple[int, int], list] = {}
-        for idx, im in enumerate(images):
-            h, w = im.shape[:2]
-            ch, cw = canvas_size(h, scale), canvas_size(w, scale)
-            if ch > self.max_size or cw > self.max_size:  # HD: tiled single path
-                out[idx] = self._estimate_single_scale(im, scale)
-                continue
-            bh, bw = _bucket(ch, self.bucket_step), _bucket(cw, self.bucket_step)
-            groups.setdefault((bh, bw), []).append((idx, im, ch, cw))
-        for (bh, bw), items in groups.items():
-            canvases = torch.cat([self._canvas(im, scale, bh, bw) for _, im, _, _ in items])
-            poses = self._batched(canvases, [it[2] for it in items],
-                                  [it[3] for it in items], scale)
-            for slot, (idx, *_rest) in enumerate(items):
-                out[idx] = poses[slot]
-        return out
 
     def estimate_pose_avg(self, image: np.ndarray, scales: Sequence[float]) -> np.ndarray:
         """Multi-scale pyramid with SCOREMAP AVERAGING: each scale's maps are
         resampled to the scale-1 grid by interpolation-matrix products on the
         device and averaged before one decode."""
-        h, w = image.shape[:2]
-        gh = canvas_size(h, 1.0) // int(STRIDE)
-        gw = canvas_size(w, 1.0) // int(STRIDE)
-        acc_sm = acc_loc = None
-        for s in scales:
-            sm, loc = self._scoremaps_dev(image, s)
-            Ah = self._matrix(int(sm.shape[1]), gh)
-            Aw = self._matrix(int(sm.shape[2]), gw)
+        with span(POSE_CALL):
+            h, w = image.shape[:2]
+            gh = canvas_size(h, 1.0) // int(STRIDE)
+            gw = canvas_size(w, 1.0) // int(STRIDE)
+            acc_sm = acc_loc = None
+            for s in scales:
+                sm, loc = self._scoremaps_dev(image, s)
+                Ah = self._matrix(int(sm.shape[1]), gh)
+                Aw = self._matrix(int(sm.shape[2]), gw)
 
-            def resample(m):
-                m = torch.einsum("ow,chw->cho", Aw, m)
-                return torch.einsum("oh,chw->cow", Ah, m)
-            acc_sm = resample(sm) if acc_sm is None else acc_sm + resample(sm)
-            lr = resample(loc) / s
-            acc_loc = lr if acc_loc is None else acc_loc + lr
-        n = float(len(scales))
-        return self._decode_whole(acc_sm / n, acc_loc / n, 1.0)
+                def resample(m):
+                    m = torch.einsum("ow,chw->cho", Aw, m)
+                    return torch.einsum("oh,chw->cow", Ah, m)
+                acc_sm = resample(sm) if acc_sm is None else acc_sm + resample(sm)
+                lr = resample(loc) / s
+                acc_loc = lr if acc_loc is None else acc_loc + lr
+            n = float(len(scales))
+            return self._decode_whole(acc_sm / n, acc_loc / n, 1.0)
 
     def scoremaps(self, image: np.ndarray, scale: float = 1.0, *, exact: bool = False
                   ) -> Tuple[np.ndarray, np.ndarray]:
@@ -390,8 +407,10 @@ class PoseEstimator:
         then those of the padded canvas, whose bottom cells can differ from
         the unpadded frame's), and exact=True sends a frame that needs that
         padding to the tiled path instead, as the JAX package does."""
-        sm, loc = self._scoremaps_dev(image, scale, exact=exact)
-        return (sm.permute(1, 2, 0).cpu().numpy(), loc.permute(1, 2, 0).cpu().numpy())
+        with span(POSE_CALL):
+            sm, loc = self._scoremaps_dev(image, scale, exact=exact)
+            with span(POSE_WAIT):
+                return (sm.permute(1, 2, 0).cpu().numpy(), loc.permute(1, 2, 0).cpu().numpy())
 
     def _scoremaps_dev(self, image: np.ndarray, scale: float = 1.0, *, exact: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -60,7 +60,9 @@ file, one dataset per blob (tools/extract_features.cpp; h5py needed).
 weights first) on one staged batch with CUDA events on the card (the host
 clock on the CPU);
 -per_layer times each layer alone on the staged stream, -trace writes a
-`torch.profiler` trace. The upgrade verbs rewrite legacy V0 / V1 net
+`torch.profiler` trace, which carries the graph engine's spans
+(``graph.forward`` around each forward, ``graph.<layer>`` around each
+layer). The upgrade verbs rewrite legacy V0 / V1 net
 definitions, legacy binary NetParameters and legacy solver enums in the
 current form. The reference's deprecated tools (train_net, finetune_net,
 test_net, net_speed_benchmark) print its warning and run their verb.
@@ -528,7 +530,9 @@ def main(argv: Optional[List[str]] = None) -> int:
             p.add_argument("-per_layer", action="store_true",
                            help="also time each layer alone on the staged stream")
             p.add_argument("-top", type=int, default=30, help="layers shown by -per_layer")
-            p.add_argument("-trace", default="", help="write a torch.profiler trace into this directory")
+            p.add_argument("-trace", default="", help="write a torch.profiler trace into this "
+                           "directory; it carries the graph engine's spans (graph.forward, "
+                           "graph.<layer>)")
 
     for verb, fn, what in (
             ("upgrade_net_proto", upgrade_net_proto, "legacy prototxt -> V2"),

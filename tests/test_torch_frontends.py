@@ -305,6 +305,8 @@ def test_cli_time_on_the_cpu(model, tmp_path):
     assert len(rows) == 3 and all(float(r.split()[-1]) >= 0 for r in rows)
     trace = json.loads((tmp_path / "trace" / "TinyClassifier_forward.json").read_text())
     assert trace["traceEvents"]
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert "graph.forward" in names and len({n for n in names if n and n.startswith("graph.")}) > 1
     out = _run(t_cli.main, ["time", "-model", proto, "-iterations", "1", "-device", "cpu",
                             "-fold_bn", "-fp32"])
     assert "folded 0 BN chains; weights cast to f32" in out
