@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # every phase below
     python3 chip_smoke.py --serving-times  # phase 1 and the serving times only
+    python3 chip_smoke.py --pose-graphs    # phases 1, 2 and P only
 
 Drives the port's ten paths (bf16 serving, int8 serving, training, the
 Caffe graph engine's serving, its data slice, the examples' front ends,
@@ -152,6 +153,19 @@ S. the spatial axis: two spawned ranks on the one card over gloo (CUDA
    688x688 frame's 704 canvas in bf16: its maps bit-equal to
    `PoseEstimator`'s forward of the canvas, and through the decode's fused
    entry the pose bit-equal to `estimate_pose`'s;
+P. the estimator's CUDA graphs (`pose.graphs`, `phase_pose_graphs`) on
+   the tamed ResNet-152: graphed poses bit-equal to the eager network's
+   and the conv_epilogue count per call equal, for estimate_pose,
+   estimate_pose_batch at 8 and 5 frames and estimate_pose_many over two
+   buckets, every chunk after a shape's capture a replay (the hit share
+   logged); four threads' answers equal to the serial ones; the profiler's
+   busy time of the replayed network within 3% of its CUDA-event graph
+   time and of the eager network's, and its conv_epilogue kernels equal to
+   the counter; wall time per call graphed and eager in turns; the cost of
+   a capture; estimate_pose over 12 frame sizes (more shapes than the
+   cache holds) and estimate_pose_many over batches of mixed sizes, in
+   rounds, graphed against eager, with no capture once the cache settles;
+   the tiled path, folded=False and int8 keeping the eager network;
 6. times on the card, each beside the card's name and limit: the bf16 and
    int8 serving forwards and estimate_pose_batch at batch 1 and 4
    (CUDA-event wall time, torch.profiler device busy time, idle share,
@@ -4557,6 +4571,261 @@ def phase_make_forward(est, rng, device: str = "cuda", size: int = 688) -> dict:
     return counts
 
 
+@contextlib.contextmanager
+def _eager(est):
+    """`est`'s batched paths with the network run eagerly, as before graphs."""
+    est._graphable = lambda: False
+    try:
+        yield
+    finally:
+        del est._graphable
+
+
+def _epilogue_kernels(fn, steps: int, tries: int = 3):
+    """(profiler busy ms, device ops, conv_epilogue_kernel device events,
+    conv_epilogue's counter) per call of `fn` over the same calls, read
+    again where the tracer lost launches (`_device_profile`)."""
+    from deepcut_tpu_torch.ops import conv_epilogue
+
+    for _ in range(tries):
+        before = conv_epilogue.launches
+        busy, ops, ranked = _device_profile(fn, steps=steps, top=10**6)
+        counted = (conv_epilogue.launches - before) / (2 * steps)   # warm-up and active
+        traced = sum(n for name, _, n in ranked if "conv_epilogue_kernel" in name)
+        if traced == counted:
+            break
+    return busy, ops, traced, counted
+
+
+def _graph_hits(est, fn, what: str):
+    """fn()'s result, and the launches it counted; `est`'s graph counters
+    must show no capture and only replays (a hit share of 100%)."""
+    from deepcut_tpu_torch.ops import conv_epilogue
+
+    stats, launched = dict(est.graph_stats), conv_epilogue.launches
+    out = fn()
+    torch.cuda.synchronize()
+    moved = {k: est.graph_stats[k] - stats[k] for k in stats}
+    share = moved["replays"] / max(1, moved["replays"] + moved["eager"])
+    log(f"P {what}: graph counters moved {moved}, hit share {100 * share:.1f}%")
+    if moved["captures"] or moved["eager"] or not moved["replays"]:
+        raise AssertionError(f"P {what}: the graph path did not take every chunk: {moved}")
+    return out, conv_epilogue.launches - launched
+
+
+def phase_pose_graphs(card: str, rng=None) -> None:
+    """P. The estimator's CUDA graphs (`pose.graphs`) against its eager
+    network on the tamed ResNet-152, bf16, 688x688 frames (the 704 bucket)
+    unless said otherwise: a shape's first chunk runs eagerly, its second
+    captures; each graphed pose bit-equal to the eager path's and its
+    conv_epilogue count equal, for estimate_pose, estimate_pose_batch at 8
+    frames (two chunks of 4, one shape) and at 5 (4 + 1), estimate_pose_many
+    over two buckets (688x688 and 480x640); four threads' answers equal to
+    the serial ones; the profiler's busy time of the graphed network held
+    against `_graph_device_ms` and the eager path's, and the batch of 8's
+    busy per frame against the eager path's; estimate_pose_batch's and
+    estimate_pose's wall time per call, graphed and eager in turns;
+    `_pose_graph_shapes`; the tiled, int8 and unfolded estimators never
+    capturing."""
+    from deepcut_tpu_torch.ops import conv_epilogue
+
+    rng = np.random.RandomState(SEED + 18) if rng is None else rng
+    cfg = deepercut_config(152)
+    params = tame_params(cfg)
+    est = PoseEstimator(params, cfg, device="cuda")
+    if not est._graphable():
+        raise AssertionError("P: the folded bf16 estimator on the card does not take graphs")
+    f688 = [frame(rng, 688, 688) for _ in range(8)]
+    f480 = [frame(rng, 480, 640) for _ in range(3)]
+    calls = (("estimate_pose, 1 frame", lambda: est.estimate_pose(f688[0])),
+             ("estimate_pose_batch, 8 frames", lambda: est.estimate_pose_batch(f688)),
+             ("estimate_pose_batch, 5 frames", lambda: est.estimate_pose_batch(f688[:5])),
+             ("estimate_pose_many, 2 buckets",
+              lambda: est.estimate_pose_many([f688[1], f480[0], f688[2], f480[1], f480[2]])))
+    serial = {}
+    for what, fn in calls:
+        with _eager(est):
+            fn()                                     # cuDNN's plans for the eager reference
+            before = conv_epilogue.launches
+            want = fn()
+            torch.cuda.synchronize()
+            want_launches = conv_epilogue.launches - before
+        first = fn()                                 # eager at a shape's first sight,
+        second = fn()                                # captured at its second
+        got, launches = _graph_hits(est, fn, what)
+        for name, pose in (("first call", first), ("second call", second), ("replayed", got)):
+            if not np.array_equal(pose, want):
+                raise AssertionError(f"P {what}: the graphed pose ({name}) differs from the eager "
+                                     f"path's: max |d| {np.abs(pose - want).max()}")
+        if launches != want_launches:
+            raise AssertionError(f"P {what}: {launches} conv_epilogue launches counted per "
+                                 f"graphed call, {want_launches} eager")
+        serial[what] = want
+        log(f"P {what}: bit-equal to the eager path, first, second call and replayed; conv_epilogue "
+            f"launches per call {launches} (eager {want_launches})")
+    log(f"P graphs held: {sorted(est._graphs.entries)}; counters {est.graph_stats}")
+
+    # four threads, each its own call, several times over, all on replays
+    fns = [fn for _, fn in calls]
+    stats = dict(est.graph_stats)
+    out = _on_threads(lambda k: [fns[k]() for _ in range(5)], list(range(4)), together=True)
+    for (what, _), (results, ms) in zip(calls, out):
+        if not all(np.array_equal(r, serial[what]) for r in results):
+            raise AssertionError(f"P {what}: a thread's answer differs from the serial one")
+    moved = {k: est.graph_stats[k] - stats[k] for k in stats}
+    if moved["captures"] or moved["eager"]:
+        raise AssertionError(f"P threads: the graph path did not take every chunk: {moved}")
+    log(f"P four threads, 5 calls each: every answer equal to the serial one; counters moved "
+        f"{moved}")
+
+    # the profiler records the replayed kernels
+    c = est.BATCH_CHUNK
+    canvases = torch.cat([est._canvas(im, 1.0, 704, 704) for im in f688[:c]])
+
+    def net_graphed():
+        est._graphs.run(canvases, lambda m: None)
+
+    def net_eager():
+        est._net_eager(canvases)
+
+    with torch.inference_mode():
+        dev = _graph_device_ms(lambda: est._forward_fused(canvases))
+    busy_g, ops_g, _ = _device_profile(net_graphed, steps=10)
+    busy_e, ops_e, _ = _device_profile(net_eager, steps=10)
+    log(f"P network at batch {c} on the 704 canvas: profiler busy per call, graphed "
+        f"{busy_g:.4f} ms over {ops_g:.0f} device ops, eager {busy_e:.4f} ms over {ops_e:.0f}; "
+        f"its own graph's device time (CUDA events) {dev:.4f} ms")
+    for name, ref in (("_graph_device_ms", dev), ("the eager path's busy", busy_e)):
+        if abs(busy_g - ref) > 0.03 * ref:
+            raise AssertionError(f"P: the graphed network's profiler busy {busy_g:.4f} ms is "
+                                 f"more than 3% off {name} {ref:.4f} ms")
+    batch8 = calls[1][1]
+    busy8_g, ops8_g, traced_g, counted_g = _epilogue_kernels(batch8, steps=5)
+    with _eager(est):
+        busy8_e, ops8_e, traced_e, counted_e = _epilogue_kernels(batch8, steps=5)
+    log(f"P estimate_pose_batch, 8 frames: profiler busy per frame graphed {busy8_g / 8:.4f} ms "
+        f"({ops8_g:.0f} device ops a call), eager {busy8_e / 8:.4f} ms ({ops8_e:.0f}); "
+        f"conv_epilogue_kernel device events per call graphed {traced_g:g} (counter "
+        f"{counted_g:g}), eager {traced_e:g} (counter {counted_e:g})")
+    if abs(busy8_g - busy8_e) > 0.03 * busy8_e:
+        raise AssertionError("P: estimate_pose_batch's busy per frame graphed is more than 3% "
+                             "off the eager path's")
+    if not traced_g == counted_g == traced_e == counted_e:
+        raise AssertionError("P: the profiler's conv_epilogue kernels and the counter disagree")
+
+    # wall time per call, in turns: eager, graphed, graphed, eager
+    for what, fn, frames in (("estimate_pose_batch, 8 frames", batch8, 8),
+                             ("estimate_pose, 1 frame", calls[0][1], 1)):
+        ms = {"eager": [], "graphed": []}
+        for side in ("eager", "graphed", "graphed", "eager") * 2:
+            with (_eager(est) if side == "eager" else contextlib.nullcontext()):
+                ms[side].append(_events_ms(fn, iters=20))
+        e, g = (float(np.median(ms[k])) for k in ("eager", "graphed"))
+        log(f"time [{card}]: P {what}: eager {e:.3f} ms/call ({frames * 1000 / e:.2f} img/s), "
+            f"graphed {g:.3f} ms/call ({frames * 1000 / g:.2f} img/s), {e / g:.3f}x; runs "
+            + json.dumps({k: [round(v, 3) for v in vs] for k, vs in ms.items()}))
+    log(f"P memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB peak allocated, "
+        f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved, {len(est._graphs.entries)} "
+        f"graphs held")
+
+    _pose_graph_shapes(params, cfg, rng, card)
+
+    # the paths that keep the eager network
+    hd = frame(rng, 720, 1280)
+    stats = dict(est.graph_stats)
+    est.estimate_pose(hd)
+    if est.graph_stats != stats:
+        raise AssertionError(f"P: the tiled path moved the graph counters: {est.graph_stats}")
+    for what, other in (("folded=False", PoseEstimator(params, cfg, folded=False, device="cuda")),
+                        ("int8", PoseEstimator(params, cfg, device="cuda"))):
+        if what == "int8":
+            other.quantize_int8(f480[0])
+        other.estimate_pose_batch(f688[:5])
+        if other._graphable() or other.graph_stats != {"captures": 0, "replays": 0, "eager": 2}:
+            raise AssertionError(f"P {what}: graph counters {other.graph_stats}")
+        log(f"P {what}: eager, graph counters {other.graph_stats}")
+        del other
+    log("P: the tiled path, the unfolded and the int8 estimators kept the eager network")
+
+
+# 12 frame sizes of 12 canvas buckets below max_size, from (256, 320) to (704, 704)
+SHAPE_ROTATION = ((200, 300), (250, 250), (330, 420), (400, 300), (460, 520), (520, 380),
+                  (580, 640), (640, 480), (300, 600), (688, 688), (480, 640), (360, 360))
+
+
+def _mixed_batches(rng, sizes=((688, 688), (480, 640), (360, 360)), lengths=(2, 5, 7, 3, 9, 6)):
+    """estimate_pose_many batches of frames of mixed sizes: a bucket's
+    chunks of 4 and remainders of 1 to 3 give more chunk shapes than an
+    estimator keeps graphs."""
+    pool = [[frame(rng, h, w) for _ in range(3)] for h, w in sizes]
+    out = []
+    for n in lengths:
+        picks = rng.randint(0, len(sizes), n)
+        out.append([pool[k][rng.randint(0, 3)] for k in picks])
+    return out
+
+
+def _rounds(est, calls, rounds: int, what: str, card: str) -> None:
+    """`calls` (a list of (name, fn)) in rounds on a fresh estimator: an
+    eager round then a graphed round, `rounds` times, each pose bit-equal to
+    the first eager round's; per round the wall ms of each side and the
+    captures, and each capturing call's ms over its eager one (the cost of
+    a miss). No capture after the second graphed round: the cache keeps its
+    graphs however many shapes rotate."""
+    want, eager_ms = [], {}
+    with _eager(est):
+        for _, fn in calls:                          # cuDNN's plans for every shape
+            want.append(fn())
+    per_round, misses = [], []
+    for r in range(rounds):
+        row = {}
+        for side in ("eager", "graphed"):
+            ms, caps = [], 0
+            for k, (name, fn) in enumerate(calls):
+                c0 = est.graph_stats["captures"]
+                with (_eager(est) if side == "eager" else contextlib.nullcontext()):
+                    t0 = time.perf_counter()
+                    got = fn()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                if not np.array_equal(got, want[k]):
+                    raise AssertionError(f"P {what}, round {r}, {name}: the {side} pose differs")
+                if side == "eager":
+                    eager_ms[k] = ms[-1]
+                elif est.graph_stats["captures"] > c0:
+                    caps += est.graph_stats["captures"] - c0
+                    misses.append((ms[-1], ms[-1] - eager_ms[k], est.graph_stats["captures"] - c0))
+            row[side] = sum(ms)
+            if side == "graphed":
+                row["captures"] = caps
+        per_round.append(row)
+    log(f"time [{card}]: P {what}, {len(calls)} calls a round, ms per round eager / graphed / "
+        f"captures: " + "; ".join(f"{r['eager']:.1f} / {r['graphed']:.1f} / {r['captures']}"
+                                   for r in per_round))
+    if misses:
+        log(f"time [{card}]: P {what}: {len(misses)} capturing calls took "
+            + ", ".join(f"{ms:.1f} ms (+{d:.1f} over eager, {n} captured)" for ms, d, n in misses))
+    log(f"P {what}: graphs held {sorted(est._graphs.entries)}; counters {est.graph_stats}")
+    late = sum(r["captures"] for r in per_round[2:])
+    if late:
+        raise AssertionError(f"P {what}: {late} captures after the second round (thrashing)")
+
+
+def _pose_graph_shapes(params, cfg, rng, card: str) -> None:
+    """P's traffic of many shapes, each on a fresh estimator: estimate_pose
+    over `SHAPE_ROTATION` (12 shapes for `GRAPH_SHAPES` graphs) and
+    estimate_pose_many over `_mixed_batches`, in 5 rounds (`_rounds`)."""
+    est = PoseEstimator(params, cfg, device="cuda")
+    frames = [frame(rng, h, w) for h, w in SHAPE_ROTATION]
+    _rounds(est, [(f"{im.shape[0]}x{im.shape[1]}", lambda im=im: est.estimate_pose(im))
+                  for im in frames], 5, "estimate_pose over 12 frame sizes", card)
+    del est
+    est = PoseEstimator(params, cfg, device="cuda")
+    batches = _mixed_batches(rng)
+    _rounds(est, [(f"{len(b)} frames", lambda b=b: est.estimate_pose_many(b)) for b in batches],
+            5, "estimate_pose_many over mixed batches", card)
+    del est
+
+
 def phase_times(est, est8, rng, card: str) -> dict:
     serving_times(est, rng, card)
     path_times(est, card)
@@ -4727,7 +4996,8 @@ PHASES = ("phase_build", "phase_kernels_vs_plain", "phase_slice", "phase_server"
           "phase_train_cli", "phase_train_grads", "phase_train_learns", "phase_graph",
           "phase_data", "phase_examples", "phase_matcaffe", "phase_dp_world1",
           "phase_dp_two_ranks", "phase_spatial", "replay_path_geometries",
-          "phase_engine_caffenet", "phase_engine_pose", "phase_make_forward", "serving_times",
+          "phase_engine_caffenet", "phase_engine_pose", "phase_make_forward",
+          "phase_pose_graphs", "serving_times",
           "path_times", "kernel_times", "int8_kernel_times", "graph_times", "data_times",
           "phase_train_times",
           # their steps, M3's and S's in each rank too
@@ -4770,6 +5040,10 @@ def main() -> int:
     if sys.argv[1:] == ["--serving-times"]:
         serving_times(PoseEstimator(tame_params(deepercut_config(152)), device="cuda"),
                       np.random.RandomState(SEED), card)
+        return 0
+    if sys.argv[1:] == ["--pose-graphs"]:
+        phase_build()
+        phase_pose_graphs(card)
         return 0
     phase_build()
     errs = phase_kernels_vs_plain()
@@ -4832,6 +5106,7 @@ def main() -> int:
     idle = [k for k in ("conv_epilogue", "decode_pose") if make_fwd[k] == 0]
     if idle:
         raise AssertionError(f"the make_forward path never launched {idle}")
+    phase_pose_graphs(card, rng)
     times = phase_times(est, est8, rng, card)
     del est, est8
     graph_times(graph_state, rng, card)

@@ -25,7 +25,12 @@ from deepcut_tpu_torch.native import PKG, NativeLib, build
 
 LIB = NativeLib(PKG / "csrc" / "conv_epilogue.cu")
 
-launches = 0  # kernel launches since the last reset (CPU calls do not count)
+# kernel launches since the last reset (CPU calls do not count), those a
+# CUDA graph replays included: a capture records launches without running
+# them, so its caller takes them back off and adds them per replay
+# (`add_launches`, as `pose.graphs` does)
+launches = 0
+_thread = threading.local()   # what this thread added to `launches` (`thread_launches`)
 # while a dict (`record_geometries`): each distinct launch geometry (shapes,
 # strides, modes), so that a caller can replay every geometry a path gave
 # the kernel against its plain version
@@ -59,6 +64,21 @@ def record_geometries(on: bool = True) -> None:
     global geometries
     with _lock:
         geometries = {} if on else None
+
+
+def thread_launches() -> int:
+    """What the calling thread has added to `launches`: a capture counts
+    the launches it records by this, which other threads' do not move."""
+    return getattr(_thread, "launches", 0)
+
+
+def add_launches(n: int) -> None:
+    """Add `n` (which may be negative) to `launches`: the launches a CUDA
+    graph's replay runs, or those its capture recorded without running."""
+    global launches
+    _thread.launches = thread_launches() + n
+    with _lock:
+        launches += n
 
 
 def conv_epilogue_plain(y: torch.Tensor, bias: Optional[torch.Tensor],
@@ -119,6 +139,7 @@ def conv_epilogue(y: torch.Tensor, bias: Optional[torch.Tensor],
         n * h * w, c, h, w, rn, rh, rw, int(relu), int(vec4), y.device.index, stream)
     if err != 0:
         raise RuntimeError(f"conv_epilogue kernel launch failed: cudaError {err}")
+    _thread.launches = thread_launches() + 1
     with _lock:
         launches += 1
         if geometries is not None:

@@ -17,11 +17,22 @@ device-resident bilinear matrices. The tiling plan is the JAX package's
 stride-aligned one (see `_tile_plan`). `PoseEstimator.quantize_int8`
 switches every path to the int8 model (`models.quantize`).
 
+On the card the batched paths (`estimate_pose` below `max_size`,
+`estimate_pose_batch`, `estimate_pose_many`'s buckets) replay the network
+as one CUDA graph per chunk shape (`pose.graphs`): captured once a shape
+recurs (its first chunk runs eagerly), kept for `GRAPH_SHAPES` shapes, its
+map bit-equal to the eager forward's. Only the folded float model on a
+CUDA device with no mesh is captured; the CPU, ``folded=False``, the int8
+model, a mesh, and every path through `_maps` (tiles, scoremaps, pyramid
+averages) run eagerly. ``graph_stats`` counts captures, replays and eager
+network calls.
+
 While a torch profiler records, each public method records a ``pose.call``
 span, and inside it ``pose.canvas`` (a frame's upload and preprocess),
-``pose.net`` (a network call), ``pose.decode`` (a decode launch) and
-``pose.wait`` (the copy back that waits on the device) spans
-(`deepcut_tpu_torch.spans`).
+``pose.net`` (a network call: an eager forward, or a graph's copy-in and
+replay), ``pose.capture`` (a graph's capture, once per shape),
+``pose.decode`` (a decode launch) and ``pose.wait`` (the copy back that
+waits on the device) spans (`deepcut_tpu_torch.spans`).
 
 With a ``mesh`` (`parallel.mesh.make_mesh`, a 'spatial' axis of S ranks)
 frames up to S * max_size rows are computed full-frame with their rows
@@ -44,6 +55,7 @@ from deepcut_tpu_torch.models.resnet import (
     DeeperCut, DeeperCutConfig, Params, cast_params, deepercut_config, fold_bn)
 from deepcut_tpu_torch.ops import cuda_decode
 from deepcut_tpu_torch.pose.decode import STRIDE
+from deepcut_tpu_torch.pose.graphs import NetGraphs
 from deepcut_tpu_torch.spans import (
     POSE_CALL, POSE_CANVAS, POSE_DECODE, POSE_NET, POSE_WAIT, span)
 
@@ -144,6 +156,10 @@ class PoseEstimator:
     # TPU; results do not depend on it, and it has not been retuned for the
     # card yet.
     BATCH_CHUNK = 4
+    # Chunk shapes (rows, canvas bucket) whose CUDA graphs an estimator
+    # keeps (`pose.graphs`); beyond it the least recently used gives way
+    # only to a shape used more often.
+    GRAPH_SHAPES = 8
 
     def __init__(self, params: Params, cfg: Optional[DeeperCutConfig] = None, *,
                  folded: bool = True, bucket_step: int = 64,
@@ -167,6 +183,9 @@ class PoseEstimator:
         self.max_size = max_size
         self._matrices: Dict[Tuple[int, int], torch.Tensor] = {}
         self._int8 = False
+        self._graphs = NetGraphs(self._forward_fused, self._net_eager, self.GRAPH_SHAPES)
+        # captures, replays and eager network calls of the batched paths
+        self.graph_stats = self._graphs.stats
 
     # -- int8 serving --------------------------------------------------------
     @property
@@ -221,6 +240,7 @@ class PoseEstimator:
         self.model = DeeperCutInt8(qparams, act_scales, self.cfg,
                                    int8_deconv=int8_deconv).to(self.device)
         self._int8 = True
+        self._graphs.clear()
 
     # -- device pieces -----------------------------------------------------
     def _matrix(self, in_size: int, out_size: int) -> torch.Tensor:
@@ -272,25 +292,55 @@ class PoseEstimator:
         with span(POSE_WAIT):
             return pose[0].cpu().numpy()
 
+    def _graphable(self) -> bool:
+        """Whether `_batched` replays CUDA graphs (module docstring): the
+        folded float model on a CUDA device, with no mesh."""
+        return (self.device.type == "cuda" and self.folded and not self._int8
+                and self.mesh is None)
+
+    def _forward_fused(self, canvases: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, 3) f32 canvases -> the heads' unsliced map. The NHWC ->
+        NCHW permute gives the channels_last memory the convs take."""
+        return self.model.fused_heads(canvases.permute(0, 3, 1, 2), heads=HEADS)
+
+    def _net_eager(self, chunk: torch.Tensor) -> torch.Tensor:
+        """`_forward_fused` run eagerly, op by op: where `_graphable` is
+        false, and the card check's reference for the graphs."""
+        with torch.inference_mode(), span(POSE_NET):
+            return self._forward_fused(chunk)
+
+    def _decode_chunk(self, fused: torch.Tensor, valid_h: Sequence[int],
+                      valid_w: Sequence[int], scale: float) -> torch.Tensor:
+        """The decode of a chunk's unsliced map, each image masked to its
+        ceil(valid/8) cell grid, the valid sizes passed by value."""
+        stride = int(STRIDE)
+        # a no-op for the serving heads (f32, channels_last); the
+        # training forwards' eval may hand bf16 or another layout
+        fused = fused.to(torch.float32, memory_format=torch.channels_last)
+        with span(POSE_DECODE):
+            return cuda_decode.decode_fused(
+                fused, self.cfg.num_joints, [-(-int(v) // stride) for v in valid_h],
+                [-(-int(v) // stride) for v in valid_w], scale)
+
     def _batched(self, canvases: torch.Tensor, valid_h: Sequence[int],
                  valid_w: Sequence[int], scale: float) -> np.ndarray:
         """CNN + decode over a canvas batch in BATCH_CHUNK chunks -> (N, 5, J).
-        The decode reads the heads' unsliced map and masks each image to
-        its ceil(valid/8) cell grid, the valid sizes passed by value: the
-        CUDA kernel's fused entry on the card, its plain version on the
-        CPU."""
-        c, stride = self.BATCH_CHUNK, int(STRIDE)
+        The decode reads the heads' unsliced map: the CUDA kernel's fused
+        entry on the card, its plain version on the CPU. Where `_graphable`,
+        each chunk's network is its shape's CUDA graph once the shape
+        recurs (`pose.graphs`), else the eager forward, op by op."""
+        c = self.BATCH_CHUNK
+        graphed = self._graphable()
+        if not graphed:
+            self._graphs.count_eager(-(-int(canvases.shape[0]) // c))
         poses = []
         for i in range(0, canvases.shape[0], c):
-            with torch.inference_mode(), span(POSE_NET):
-                fused = self.model.fused_heads(canvases[i:i + c].permute(0, 3, 1, 2), heads=HEADS)
-            # a no-op for the serving heads (f32, channels_last); the
-            # training forwards' eval may hand bf16 or another layout
-            fused = fused.to(torch.float32, memory_format=torch.channels_last)
-            with span(POSE_DECODE):
-                poses.append(cuda_decode.decode_fused(
-                    fused, self.cfg.num_joints, [-(-int(v) // stride) for v in valid_h[i:i + c]],
-                    [-(-int(v) // stride) for v in valid_w[i:i + c]], scale))
+            chunk, vh, vw = canvases[i:i + c], valid_h[i:i + c], valid_w[i:i + c]
+            if graphed:
+                poses.append(self._graphs.run(
+                    chunk, lambda fused: self._decode_chunk(fused, vh, vw, scale)))
+            else:
+                poses.append(self._decode_chunk(self._net_eager(chunk), vh, vw, scale))
         with span(POSE_WAIT):
             return torch.cat(poses).cpu().numpy()
 

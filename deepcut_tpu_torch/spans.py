@@ -9,7 +9,7 @@ events are not user annotations, so a CUDA build's profiler projects none of
 them onto the device timeline. A CUDA-graph replay records no span: keep
 spans outside a capture.
 
-The names are a closed set: the estimator's five, ``graph.forward`` and one
+The names are a closed set: the estimator's six, ``graph.forward`` and one
 ``graph.<layer>`` per plan step of the graph engine (`layer_span`).
 """
 
@@ -22,6 +22,7 @@ POSE_CANVAS = "pose.canvas"  # a frame's upload and preprocess
 POSE_NET = "pose.net"        # a network call
 POSE_DECODE = "pose.decode"  # a decode launch
 POSE_WAIT = "pose.wait"      # a copy back that waits on the device
+POSE_CAPTURE = "pose.capture"  # a network's capture into a CUDA graph (`pose.graphs`)
 GRAPH_FORWARD = "graph.forward"  # a make_forward call
 GRAPH_PREFIX = "graph."
 
