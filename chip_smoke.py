@@ -161,7 +161,10 @@ P. the estimator's CUDA graphs (`pose.graphs`, `phase_pose_graphs`) on
    logged); four threads' answers equal to the serial ones; the profiler's
    busy time of the replayed network within 3% of its CUDA-event graph
    time and of the eager network's, and its conv_epilogue kernels equal to
-   the counter; wall time per call graphed and eager in turns; the cost of
+   the counter; wall time per call graphed and eager in turns; 240
+   estimate_pose_batch calls on distinct frames back to back, bit-equal to
+   the per-frame pageable canvases' path, and both paths' wall time per
+   call in turns (`_staging_check`); the cost of
    a capture; estimate_pose over 12 frame sizes (more shapes than the
    cache holds) and estimate_pose_many over batches of mixed sizes, in
    rounds, graphed against eager, with no capture once the cache settles;
@@ -4613,6 +4616,72 @@ def _graph_hits(est, fn, what: str):
     return out, conv_epilogue.launches - launched
 
 
+def _per_frame_batch(est, frames, scale: float = 1.0) -> np.ndarray:
+    """estimate_pose_batch as the estimator computed it before it staged
+    chunks: each frame alone from pageable memory (`.to`, which waits),
+    preprocessed alone, every canvas made before the first chunk's network,
+    then per chunk the graph (or the eager network) and the decode, then
+    the wait."""
+    from deepcut_tpu_torch.pose.estimate import PAD_SIZE, _bucket, preprocess_on_device
+
+    h, w = frames[0].shape[:2]
+    ch, cw = canvas_size(h, scale), canvas_size(w, scale)
+    bh, bw = _bucket(ch, est.bucket_step), _bucket(cw, est.bucket_step)
+    out_h, out_w = int((h + PAD_SIZE) * scale), int((w + PAD_SIZE) * scale)
+    mats = None
+    if (out_h, out_w) != (h + PAD_SIZE, w + PAD_SIZE):
+        mats = (est._matrix(h + PAD_SIZE, out_h), est._matrix(w + PAD_SIZE, out_w))
+    canvases = torch.cat([preprocess_on_device(
+        torch.from_numpy(np.ascontiguousarray(im)).to(est.device), out_h, out_w, bh, bw, mats)
+        for im in frames])
+    c, poses = est.BATCH_CHUNK, []
+    for i in range(0, len(frames), c):
+        vh, vw = [ch] * len(frames[i:i + c]), [cw] * len(frames[i:i + c])
+        poses.append(est._graphs.run(canvases[i:i + c],
+                                     lambda fused: est._decode_chunk(fused, vh, vw, scale)))
+    return torch.cat(poses).cpu().numpy()
+
+
+def _staging_check(est, rng, card: str) -> None:
+    """P's check of the staged chunks: estimate_pose_batch calls back to
+    back on 8 distinct 688x688 frames each (200 at scale 1, 40 at 0.8),
+    no two calls in a row sharing a frame, each pose bit-equal to
+    `_per_frame_batch`'s on the same frames: a page-locked staging block
+    rewritten before its copy ran would show here. Then each path's wall
+    ms per call (host clock; each call ends in its wait), in turns."""
+    pool = [frame(rng, 688, 688) for _ in range(200)]
+    sets = [pool[8 * k:8 * k + 8] for k in range(25)]
+    for scale, calls in ((1.0, 200), (0.8, 40)):
+        for s in sets[:2]:
+            est.estimate_pose_batch(s, scale)            # graphs captured for the shape
+        want = [_per_frame_batch(est, s, scale) for s in sets]
+        t0 = time.perf_counter()
+        got = [est.estimate_pose_batch(sets[i % len(sets)], scale) for i in range(calls)]
+        secs = time.perf_counter() - t0
+        bad = [i for i, pose in enumerate(got) if not np.array_equal(pose, want[i % len(sets)])]
+        if bad:
+            i = bad[0]
+            raise AssertionError(
+                f"P staging at scale {scale}: {len(bad)} of {calls} calls differ from the "
+                f"per-frame path, first call {i}, max |d| "
+                f"{np.abs(got[i] - want[i % len(sets)]).max()}")
+        log(f"P staging at scale {scale}: {calls} estimate_pose_batch calls of 8 distinct frames "
+            f"back to back ({secs * 1e3 / calls:.3f} ms a call), every pose bit-equal to the "
+            f"per-frame path's")
+    ms = {"per-frame": [], "staged": []}
+    for side in ("per-frame", "staged", "staged", "per-frame") * 2:
+        fn = _per_frame_batch if side == "per-frame" else PoseEstimator.estimate_pose_batch
+        t0 = time.perf_counter()
+        for i in range(20):
+            fn(est, sets[i % len(sets)])
+        ms[side].append((time.perf_counter() - t0) * 1e3 / 20)
+    p, s = (float(np.median(ms[k])) for k in ("per-frame", "staged"))
+    log(f"time [{card}]: P estimate_pose_batch, 8 frames, graphed: per-frame pageable canvases "
+        f"{p:.3f} ms/call ({8000 / p:.2f} img/s), staged chunks {s:.3f} ms/call "
+        f"({8000 / s:.2f} img/s), {p / s:.3f}x; runs "
+        + json.dumps({k: [round(v, 3) for v in vs] for k, vs in ms.items()}))
+
+
 def phase_pose_graphs(card: str, rng=None) -> None:
     """P. The estimator's CUDA graphs (`pose.graphs`) against its eager
     network on the tamed ResNet-152, bf16, 688x688 frames (the 704 bucket)
@@ -4625,8 +4694,8 @@ def phase_pose_graphs(card: str, rng=None) -> None:
     against `_graph_device_ms` and the eager path's, and the batch of 8's
     busy per frame against the eager path's; estimate_pose_batch's and
     estimate_pose's wall time per call, graphed and eager in turns;
-    `_pose_graph_shapes`; the tiled, int8 and unfolded estimators never
-    capturing."""
+    `_staging_check`; `_pose_graph_shapes`; the tiled, int8 and unfolded
+    estimators never capturing."""
     from deepcut_tpu_torch.ops import conv_epilogue
 
     rng = np.random.RandomState(SEED + 18) if rng is None else rng
@@ -4724,6 +4793,7 @@ def phase_pose_graphs(card: str, rng=None) -> None:
         log(f"time [{card}]: P {what}: eager {e:.3f} ms/call ({frames * 1000 / e:.2f} img/s), "
             f"graphed {g:.3f} ms/call ({frames * 1000 / g:.2f} img/s), {e / g:.3f}x; runs "
             + json.dumps({k: [round(v, 3) for v in vs] for k, vs in ms.items()}))
+    _staging_check(est, rng, card)
     log(f"P memory: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB peak allocated, "
         f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB reserved, {len(est._graphs.entries)} "
         f"graphs held")

@@ -10,7 +10,13 @@ the best scale by its lowest joint confidence wins.
 On the device: the preprocess (f32 interpolation-matrix products), the
 network, and the decode, which is the hand-written CUDA kernel
 (`ops.cuda_decode`) on a CUDA device, reading the heads' unsliced map on
-the batched paths, so only the 5 x J pose crosses back to the host. Canvas sizes are rounded up to a bucket grid with the argmax
+the batched paths, so only the 5 x J pose crosses back to the host. On a
+CUDA device the frames go up from page-locked memory without the host
+waiting, and the frames of one size in a chunk are preprocessed as one
+batch. The batched paths work chunk by chunk: a chunk's network and decode
+are enqueued as soon as its canvases are, so the card runs one chunk while
+the host stages the next, and the host waits once, for the whole call's
+poses. Canvas sizes are rounded up to a bucket grid with the argmax
 masked to each image's true grid, as in the JAX package; in place of its
 per-bucket jit programs this estimator keeps a per-size cache of
 device-resident bilinear matrices. The tiling plan is the JAX package's
@@ -28,7 +34,7 @@ averages) run eagerly. ``graph_stats`` counts captures, replays and eager
 network calls.
 
 While a torch profiler records, each public method records a ``pose.call``
-span, and inside it ``pose.canvas`` (a frame's upload and preprocess),
+span, and inside it ``pose.canvas`` (a chunk's upload and preprocess),
 ``pose.net`` (a network call: an eager forward, or a graph's copy-in and
 replay), ``pose.capture`` (a graph's capture, once per shape),
 ``pose.decode`` (a decode launch) and ``pose.wait`` (the copy back that
@@ -114,33 +120,47 @@ def _round_half_up(x: torch.Tensor) -> torch.Tensor:
 def preprocess_on_device(image_u8: torch.Tensor, out_h: int, out_w: int,
                          canvas_h: int, canvas_w: int,
                          matrices: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                         ) -> torch.Tensor:
-    """uint8 BGR (H, W, 3) on the device -> f32 canvas (1, canvas_h, canvas_w, 3).
+                         mean: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """uint8 BGR frames of one size on the device, (H, W, 3) or
+    (n, H, W, 3) -> f32 canvases (n, canvas_h, canvas_w, 3), n = 1 for a
+    single frame.
 
     Edge-replicate 64 px pad (bottom/right), bilinear resize to
     (out_h, out_w) by two interpolation-matrix products in f32, each pass
     rounded half-up to integers as PIL does on uint8, mean subtraction,
     top-left paste into a zero canvas (crop on overflow). At scale 1 the
-    resize is skipped exactly. `matrices` optionally passes the (Ah, Aw)
-    resampling matrices already on the device; they are made here otherwise.
+    resize is skipped exactly. The frames are padded, mean-subtracted and
+    pasted as one batch; each frame's resize runs as a single frame's
+    (batched matrix products may round differently), so every canvas is
+    bit-equal to its frame's alone. `matrices` optionally passes the
+    (Ah, Aw) resampling matrices and `mean` the BGR mean already on the
+    device; they are made here otherwise (a copy that waits for the device).
     """
     dev = image_u8.device
-    h, w = int(image_u8.shape[0]), int(image_u8.shape[1])
+    frames = image_u8 if image_u8.dim() == 4 else image_u8[None]
+    h, w = int(frames.shape[1]), int(frames.shape[2])
     ph, pw = h + PAD_SIZE, w + PAD_SIZE
     rows = torch.clamp(torch.arange(ph, device=dev), max=h - 1)
     cols = torch.clamp(torch.arange(pw, device=dev), max=w - 1)
-    img = image_u8[rows][:, cols].to(torch.float32)
-    if (out_h, out_w) != (ph, pw):
+    if (out_h, out_w) == (ph, pw):
+        img = frames[:, rows][:, :, cols].to(torch.float32)
+    else:
         if matrices is None:
             matrices = (torch.from_numpy(_bilinear_matrix(ph, out_h)).to(dev),
                         torch.from_numpy(_bilinear_matrix(pw, out_w)).to(dev))
         Ah, Aw = matrices
-        img = _round_half_up(torch.einsum("ow,hwc->hoc", Aw, img))
-        img = _round_half_up(torch.einsum("oh,hwc->owc", Ah, img))
-    img = img - torch.tensor(MEAN_BGR, dtype=torch.float32, device=dev)
+
+        def resize(frame: torch.Tensor) -> torch.Tensor:
+            img = frame[rows][:, cols].to(torch.float32)
+            img = _round_half_up(torch.einsum("ow,hwc->hoc", Aw, img))
+            return _round_half_up(torch.einsum("oh,hwc->owc", Ah, img))
+        img = torch.stack([resize(f) for f in frames])
+    if mean is None:
+        mean = torch.tensor(MEAN_BGR, dtype=torch.float32, device=dev)
+    img = img - mean
     ch, cw = min(canvas_h, out_h), min(canvas_w, out_w)
-    canvas = torch.zeros((1, canvas_h, canvas_w, 3), dtype=torch.float32, device=dev)
-    canvas[0, :ch, :cw] = img[:ch, :cw]
+    canvas = torch.zeros((len(frames), canvas_h, canvas_w, 3), dtype=torch.float32, device=dev)
+    canvas[:, :ch, :cw] = img[:, :ch, :cw]
     return canvas
 
 
@@ -182,6 +202,7 @@ class PoseEstimator:
         self.bucket_step = bucket_step
         self.max_size = max_size
         self._matrices: Dict[Tuple[int, int], torch.Tensor] = {}
+        self._mean = torch.tensor(MEAN_BGR, dtype=torch.float32, device=self.device)
         self._int8 = False
         self._graphs = NetGraphs(self._forward_fused, self._net_eager, self.GRAPH_SHAPES)
         # captures, replays and eager network calls of the batched paths
@@ -250,17 +271,46 @@ class PoseEstimator:
                 _bilinear_matrix(in_size, out_size)).to(self.device)
         return self._matrices[key]
 
+    def _upload(self, images: Sequence[np.ndarray]) -> torch.Tensor:
+        """Host frames of one size -> (n, H, W, 3) on the device. On a CUDA
+        device they are copied into page-locked memory and sent without the
+        host waiting: torch's caching host allocator keeps the block from
+        reuse until its copy has run."""
+        dtype = torch.from_numpy(np.empty(0, images[0].dtype)).dtype
+        host = torch.empty((len(images),) + images[0].shape, dtype=dtype,
+                           pin_memory=self.device.type == "cuda")
+        view = host.numpy()
+        for k, im in enumerate(images):
+            view[k] = im
+        return host.to(self.device, non_blocking=True)
+
+    def _canvases(self, images: Sequence[np.ndarray], scale: float, canvas_h: int,
+                  canvas_w: int) -> torch.Tensor:
+        """Host frames -> (n, canvas_h, canvas_w, 3) f32 canvases on the
+        device, in order; the frames of each size uploaded and preprocessed
+        as one batch (`preprocess_on_device`)."""
+        with span(POSE_CANVAS):
+            sizes: Dict[Tuple[int, int], List[int]] = {}
+            for k, im in enumerate(images):
+                sizes.setdefault(tuple(im.shape[:2]), []).append(k)
+            slots: list = [None] * len(images)   # (its size's canvases, its row there)
+            for (h, w), idx in sizes.items():
+                out_h, out_w = _resized_size(h, scale), _resized_size(w, scale)
+                mats = None
+                if (out_h, out_w) != (h + PAD_SIZE, w + PAD_SIZE):
+                    mats = (self._matrix(h + PAD_SIZE, out_h), self._matrix(w + PAD_SIZE, out_w))
+                canvases = preprocess_on_device(self._upload([images[k] for k in idx]), out_h,
+                                                out_w, canvas_h, canvas_w, mats, self._mean)
+                if len(sizes) == 1:
+                    return canvases
+                for j, k in enumerate(idx):
+                    slots[k] = (canvases, j)
+            return torch.cat([c[j:j + 1] for c, j in slots])
+
     def _canvas(self, image: np.ndarray, scale: float, canvas_h: int,
                 canvas_w: int) -> torch.Tensor:
         """Host frame -> (1, canvas_h, canvas_w, 3) f32 canvas on the device."""
-        with span(POSE_CANVAS):
-            h, w = image.shape[:2]
-            out_h, out_w = _resized_size(h, scale), _resized_size(w, scale)
-            u8 = torch.from_numpy(np.ascontiguousarray(image)).to(self.device)
-            mats = None
-            if (out_h, out_w) != (h + PAD_SIZE, w + PAD_SIZE):
-                mats = (self._matrix(h + PAD_SIZE, out_h), self._matrix(w + PAD_SIZE, out_w))
-            return preprocess_on_device(u8, out_h, out_w, canvas_h, canvas_w, mats)
+        return self._canvases([image], scale, canvas_h, canvas_w)
 
     def _maps(self, canvases: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(N, H, W, 3) f32 canvases -> prob (N, J, h, w), loc (N, 2J, h, w),
@@ -322,27 +372,37 @@ class PoseEstimator:
                 fused, self.cfg.num_joints, [-(-int(v) // stride) for v in valid_h],
                 [-(-int(v) // stride) for v in valid_w], scale)
 
-    def _batched(self, canvases: torch.Tensor, valid_h: Sequence[int],
-                 valid_w: Sequence[int], scale: float) -> np.ndarray:
-        """CNN + decode over a canvas batch in BATCH_CHUNK chunks -> (N, 5, J).
-        The decode reads the heads' unsliced map: the CUDA kernel's fused
-        entry on the card, its plain version on the CPU. Where `_graphable`,
-        each chunk's network is its shape's CUDA graph once the shape
-        recurs (`pose.graphs`), else the eager forward, op by op."""
+    def _batched(self, images: Sequence[np.ndarray], scale: float, canvas_h: int,
+                 canvas_w: int, valid_h: Sequence[int], valid_w: Sequence[int]
+                 ) -> torch.Tensor:
+        """Canvases, CNN and decode over host frames in BATCH_CHUNK chunks
+        -> (N, 5, J) poses on the device, not waited for (`_wait`). Each
+        chunk's network and decode are enqueued right after its canvases
+        (`_canvases`), before the next chunk's are made: the device runs
+        chunk k while the host stages chunk k+1. The decode reads the heads'
+        unsliced map: the CUDA kernel's fused entry on the card, its plain
+        version on the CPU. Where `_graphable`, each chunk's network is its
+        shape's CUDA graph once the shape recurs (`pose.graphs`), else the
+        eager forward, op by op."""
         c = self.BATCH_CHUNK
         graphed = self._graphable()
         if not graphed:
-            self._graphs.count_eager(-(-int(canvases.shape[0]) // c))
+            self._graphs.count_eager(-(-len(images) // c))
         poses = []
-        for i in range(0, canvases.shape[0], c):
-            chunk, vh, vw = canvases[i:i + c], valid_h[i:i + c], valid_w[i:i + c]
+        for i in range(0, len(images), c):
+            chunk = self._canvases(images[i:i + c], scale, canvas_h, canvas_w)
+            vh, vw = valid_h[i:i + c], valid_w[i:i + c]
             if graphed:
                 poses.append(self._graphs.run(
                     chunk, lambda fused: self._decode_chunk(fused, vh, vw, scale)))
             else:
                 poses.append(self._decode_chunk(self._net_eager(chunk), vh, vw, scale))
+        return torch.cat(poses)
+
+    def _wait(self, poses: torch.Tensor) -> np.ndarray:
+        """Device poses -> host numpy, waiting for the device."""
         with span(POSE_WAIT):
-            return torch.cat(poses).cpu().numpy()
+            return poses.cpu().numpy()
 
     # -- public API --------------------------------------------------------
     def estimate_pose(self, image: np.ndarray, scales: Optional[Sequence[float]] = None
@@ -374,7 +434,7 @@ class PoseEstimator:
         if ch > self.max_size or cw > self.max_size:
             return self._decode_whole(*self._scoremaps_tiled(image, scale), scale)
         bh, bw = _bucket(ch, self.bucket_step), _bucket(cw, self.bucket_step)
-        return self._batched(self._canvas(image, scale, bh, bw), [ch], [cw], scale)[0]
+        return self._wait(self._batched([image], scale, bh, bw, [ch], [cw]))[0]
 
     def estimate_pose_batch(self, images: Sequence[np.ndarray],
                             scale: float = 1.0) -> np.ndarray:
@@ -390,16 +450,16 @@ class PoseEstimator:
                 return np.stack([self._estimate_single_scale(im, scale) for im in images])
             ch, cw = canvas_size(h, scale), canvas_size(w, scale)
             bh, bw = _bucket(ch, self.bucket_step), _bucket(cw, self.bucket_step)
-            canvases = torch.cat([self._canvas(im, scale, bh, bw) for im in images])
             n = len(images)
-            return self._batched(canvases, [ch] * n, [cw] * n, scale)
+            return self._wait(self._batched(images, scale, bh, bw, [ch] * n, [cw] * n))
 
     def estimate_pose_many(self, images: Sequence[np.ndarray],
                            scale: float = 1.0) -> np.ndarray:
         """Mixed-size batched serving: images are grouped by canvas bucket,
         each group runs batched with per-image valid extents (the decode
-        masks each image's own grid), and oversized frames take the tiled
-        single path. Returns (N, 5, J) in input order; per-image results
+        masks each image's own grid), the buckets one after the other with
+        one wait at the end, and oversized frames take the tiled single
+        path. Returns (N, 5, J) in input order; per-image results
         equal estimate_pose(image, [scale]) up to the batch's rounding. With
         a mesh each frame takes the row-sharded single path."""
         with span(POSE_CALL):
@@ -417,12 +477,13 @@ class PoseEstimator:
                     continue
                 bh, bw = _bucket(ch, self.bucket_step), _bucket(cw, self.bucket_step)
                 groups.setdefault((bh, bw), []).append((idx, im, ch, cw))
-            for (bh, bw), items in groups.items():
-                canvases = torch.cat([self._canvas(im, scale, bh, bw) for _, im, _, _ in items])
-                poses = self._batched(canvases, [it[2] for it in items],
-                                      [it[3] for it in items], scale)
-                for slot, (idx, *_rest) in enumerate(items):
-                    out[idx] = poses[slot]
+            poses, where = [], []
+            for (bh, bw), items in groups.items():   # every bucket enqueued, one wait
+                poses.append(self._batched([it[1] for it in items], scale, bh, bw,
+                                           [it[2] for it in items], [it[3] for it in items]))
+                where += [it[0] for it in items]
+            if poses:
+                out[where] = self._wait(torch.cat(poses))
             return out
 
     def estimate_pose_avg(self, image: np.ndarray, scales: Sequence[float]) -> np.ndarray:

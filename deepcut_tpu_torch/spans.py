@@ -18,7 +18,7 @@ from __future__ import annotations
 from torch._C._profiler import _RecordFunctionFast
 
 POSE_CALL = "pose.call"      # each public PoseEstimator method
-POSE_CANVAS = "pose.canvas"  # a frame's upload and preprocess
+POSE_CANVAS = "pose.canvas"  # a chunk's upload and preprocess
 POSE_NET = "pose.net"        # a network call
 POSE_DECODE = "pose.decode"  # a decode launch
 POSE_WAIT = "pose.wait"      # a copy back that waits on the device

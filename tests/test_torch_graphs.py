@@ -1,4 +1,5 @@
-"""The estimator's CUDA-graph path (`deepcut_tpu_torch.pose.graphs`) on the CPU.
+"""The estimator's CUDA-graph path (`deepcut_tpu_torch.pose.graphs`) and its
+chunk staging on the CPU.
 
 A graph is captured and replayed only on the card, so here the rule that
 chooses the path is checked as a predicate, the paths it refuses are run
@@ -9,6 +10,12 @@ captured at its second use, and a full cache gives a place only to a shape
 used twice more than its least recent graph. The card check
 (chip_smoke.py --pose-graphs) holds real replays bit-equal to the eager
 path.
+
+The batched paths stage a chunk's frames as one (one upload and one
+preprocess per frame size) and enqueue each chunk's network before the next
+chunk's canvases: canvases and poses are held bit-equal to each frame's
+canvas made alone, as the estimator made it before (`_frame_canvas`), and a
+recording stub holds the order.
 """
 
 import contextlib
@@ -19,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from deepcut_tpu_torch.constants import MEAN_BGR
 from deepcut_tpu_torch.models.resnet import DeeperCutConfig, init_params
 from deepcut_tpu_torch.ops import conv_epilogue, cuda_decode
 from deepcut_tpu_torch.pose import estimate, graphs
@@ -37,13 +45,39 @@ def _frames(n, h=40, w=48, seed=1):
     return [rng.randint(0, 256, (h, w, 3), np.uint8) for _ in range(n)]
 
 
+def _frame_canvas(image, scale, canvas_h, canvas_w):
+    """One frame's (1, canvas_h, canvas_w, 3) canvas as the estimator made
+    it before chunks were staged: the frame alone, padded by edge
+    replication, resized by the two rounded matrix products, the mean
+    taken off, pasted into a zero canvas."""
+    h, w = image.shape[:2]
+    ph, pw = h + estimate.PAD_SIZE, w + estimate.PAD_SIZE
+    out_h, out_w = estimate._resized_size(h, scale), estimate._resized_size(w, scale)
+    u8 = torch.from_numpy(np.ascontiguousarray(image))
+    rows = torch.clamp(torch.arange(ph), max=h - 1)
+    cols = torch.clamp(torch.arange(pw), max=w - 1)
+    img = u8[rows][:, cols].to(torch.float32)
+    if (out_h, out_w) != (ph, pw):
+        Ah = torch.from_numpy(estimate._bilinear_matrix(ph, out_h))
+        Aw = torch.from_numpy(estimate._bilinear_matrix(pw, out_w))
+        img = estimate._round_half_up(torch.einsum("ow,hwc->hoc", Aw, img))
+        img = estimate._round_half_up(torch.einsum("oh,hwc->owc", Ah, img))
+    img = img - torch.tensor(MEAN_BGR, dtype=torch.float32)
+    ch, cw = min(canvas_h, out_h), min(canvas_w, out_w)
+    canvas = torch.zeros((1, canvas_h, canvas_w, 3), dtype=torch.float32)
+    canvas[0, :ch, :cw] = img[:ch, :cw]
+    return canvas
+
+
 def _before_graphs(est, frames, scale=1.0):
-    """estimate_pose_batch as the estimator computed it before graphs:
-    chunk by chunk, the network eagerly, the fused decode."""
-    h, w = frames[0].shape[:2]
-    ch, cw = estimate.canvas_size(h, scale), estimate.canvas_size(w, scale)
-    bh, bw = estimate._bucket(ch, est.bucket_step), estimate._bucket(cw, est.bucket_step)
-    canvases = torch.cat([est._canvas(im, scale, bh, bw) for im in frames])
+    """estimate_pose_batch (or one canvas bucket of estimate_pose_many) as
+    the estimator computed it before graphs and staged chunks: every
+    frame's canvas alone (`_frame_canvas`), then chunk by chunk the network
+    eagerly and the fused decode, each frame masked to its own grid."""
+    ch = [estimate.canvas_size(im.shape[0], scale) for im in frames]
+    cw = [estimate.canvas_size(im.shape[1], scale) for im in frames]
+    bh, bw = estimate._bucket(ch[0], est.bucket_step), estimate._bucket(cw[0], est.bucket_step)
+    canvases = torch.cat([_frame_canvas(im, scale, bh, bw) for im in frames])
     c, stride = est.BATCH_CHUNK, 8
     poses = []
     for i in range(0, canvases.shape[0], c):
@@ -51,9 +85,9 @@ def _before_graphs(est, frames, scale=1.0):
             fused = est.model.fused_heads(canvases[i:i + c].permute(0, 3, 1, 2),
                                           heads=estimate.HEADS)
         fused = fused.to(torch.float32, memory_format=torch.channels_last)
-        n = fused.shape[0]
-        poses.append(cuda_decode.decode_fused(fused, CFG.num_joints, [-(-ch // stride)] * n,
-                                              [-(-cw // stride)] * n, scale))
+        poses.append(cuda_decode.decode_fused(fused, CFG.num_joints,
+                                              [-(-v // stride) for v in ch[i:i + c]],
+                                              [-(-v // stride) for v in cw[i:i + c]], scale))
     return torch.cat(poses).numpy()
 
 
@@ -318,3 +352,106 @@ def test_add_launches_counts_from_threads():
     assert mine == {n: 2000 * n for n in (3, -1, 5, -2, 7, 4, 2, -9)}   # each thread its own
     conv_epilogue.add_launches(-2000 * 9)
     assert conv_epilogue.launches == before
+
+
+# -- chunk staging ---------------------------------------------------------------
+MIXED = [(40, 48), (36, 44), (40, 48), (33, 48), (40, 48)]   # one 64x64 bucket at 1.0 and 0.8
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.8])
+@pytest.mark.parametrize("sizes", [[(40, 48)], [(40, 48)] * 5, MIXED],
+                         ids=["one", "same-size", "mixed"])
+def test_chunk_canvases_bit_equal_to_each_frame_alone(scale, sizes):
+    """A chunk's canvases, staged as one per frame size, against each
+    frame's made alone; a BGR view with negative strides among them."""
+    est = _estimator()
+    frames = [_frames(1, h, w, seed=k)[0] for k, (h, w) in enumerate(sizes)]
+    frames[0] = frames[0][:, :, ::-1]
+    got = est._canvases(frames, scale, 64, 64)
+    want = torch.cat([_frame_canvas(im, scale, 64, 64) for im in frames])
+    assert got.shape == (len(frames), 64, 64, 3) and torch.equal(got, want)
+    assert torch.equal(est._canvas(frames[-1], scale, 64, 64), want[-1:])
+
+
+def test_upload_keeps_plain_tensors_on_the_cpu():
+    est = _estimator()
+    frames = _frames(3)
+    frames[1] = frames[1][:, ::-1]
+    up = est._upload(frames)
+    assert up.device.type == "cpu" and up.dtype == torch.uint8 and not up.is_pinned()
+    np.testing.assert_array_equal(up.numpy(), np.stack(frames))
+
+
+@contextlib.contextmanager
+def _frame_canvases(est):
+    """`est`'s single-frame canvases made as before chunks were staged."""
+    est._canvas = lambda im, scale, h, w: _frame_canvas(im, scale, h, w)
+    try:
+        yield
+    finally:
+        del est._canvas
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.8])
+@pytest.mark.parametrize("graphed", [False, True], ids=["eager", "graphed"])
+def test_staged_poses_bit_equal_to_each_frame_alone(scale, graphed, request):
+    """estimate_pose, estimate_pose_batch at 8 and 5 frames, and
+    estimate_pose_many over mixed sizes in two buckets with a frame on the
+    tiled path, each pose bit-equal to the path that made every canvas
+    alone; on the graph path (stubbed) on first sight, capture and replay."""
+    if graphed:
+        request.getfixturevalue("stubbed")
+    est = _estimator()
+    est.max_size = 512
+    frames = _frames(8)
+    mixed = [_frames(1, h, w, seed=10 + k)[0] for k, (h, w) in enumerate(MIXED)]
+    tall = _frames(2, 100, 48, seed=20)
+    hd = _frames(1, 330, 700, seed=30)[0]   # canvas wider than max_size at 1.0 and 0.8
+    many = [mixed[0], tall[0], mixed[1], hd, mixed[2], tall[1], mixed[3], mixed[4]]
+    want_many = np.zeros((len(many), 5, 3), np.float32)
+    want_many[[0, 2, 4, 6, 7]] = _before_graphs(est, mixed, scale)
+    want_many[[1, 5]] = _before_graphs(est, tall, scale)
+    with _frame_canvases(est):
+        want_many[3] = est._decode_whole(*est._scoremaps_tiled(hd, scale), scale)
+    for _ in range(3 if graphed else 1):   # first sight, capture, replay
+        np.testing.assert_array_equal(est.estimate_pose(frames[0], [scale]),
+                                      _before_graphs(est, frames[:1], scale)[0])
+        for n in (8, 5):
+            np.testing.assert_array_equal(est.estimate_pose_batch(frames[:n], scale),
+                                          _before_graphs(est, frames[:n], scale))
+        np.testing.assert_array_equal(est.estimate_pose_many(many, scale), want_many)
+    if graphed:
+        assert est.graph_stats["replays"] > 0
+
+
+@pytest.mark.parametrize("graphed", [False, True], ids=["eager", "graphed"])
+def test_chunk_network_enqueued_before_next_canvases(graphed, request, monkeypatch):
+    """A recording stub: each chunk's network comes right after its
+    canvases and before the next chunk's preprocess, and the call waits
+    once, at its end (estimate_pose_many: once for all its buckets)."""
+    if graphed:
+        request.getfixturevalue("stubbed")
+    est = _estimator()
+    log = []
+    preprocess, run, eager, wait = (estimate.preprocess_on_device, est._graphs.run,
+                                    est._net_eager, est._wait)
+
+    def logged(kind, fn):
+        def call(x, *a, **k):
+            log.append((kind, len(x)))
+            return fn(x, *a, **k)
+        return call
+
+    monkeypatch.setattr(estimate, "preprocess_on_device", logged("canvas", preprocess))
+    monkeypatch.setattr(est._graphs, "run", logged("net", run))
+    monkeypatch.setattr(est, "_net_eager", logged("net", eager))
+    monkeypatch.setattr(est, "_wait", logged("wait", wait))
+    small, tall = _frames(5), _frames(2, 100, 48, seed=2)
+    for _ in range(3 if graphed else 1):   # first sight, capture, replay
+        log.clear()
+        est.estimate_pose_batch(_frames(8))
+        assert log == [("canvas", 4), ("net", 4), ("canvas", 4), ("net", 4), ("wait", 8)]
+        log.clear()
+        est.estimate_pose_many([small[0], tall[0], small[1], small[2], tall[1], small[3], small[4]])
+        assert log == [("canvas", 4), ("net", 4), ("canvas", 1), ("net", 1),
+                       ("canvas", 2), ("net", 2), ("wait", 7)]

@@ -80,7 +80,7 @@ def _inside(inner, outer):
 
 
 def test_batch_call_records_nested_pose_spans():
-    """5 frames, chunks of 4: one call holding 5 canvases, then per chunk a
+    """5 frames, chunks of 4: one call holding, per chunk, its canvases, a
     net and a decode, then one wait, all on one thread, each holding the
     aten ops it ran."""
     est = _estimator()
@@ -89,8 +89,8 @@ def test_batch_call_records_nested_pose_spans():
     assert poses.shape == (5, 5, 3)
     ours = _named(events, "pose.")
     names = [e.name() for e in ours]
-    assert names == ([spans.POSE_CALL] + [spans.POSE_CANVAS] * 5
-                     + [spans.POSE_NET, spans.POSE_DECODE] * 2 + [spans.POSE_WAIT])
+    assert names == ([spans.POSE_CALL] + [spans.POSE_CANVAS, spans.POSE_NET, spans.POSE_DECODE] * 2
+                     + [spans.POSE_WAIT])
     call, inner = ours[0], ours[1:]
     assert all(_inside(e, call) for e in inner)
     assert all(a.end_ns() <= b.start_ns() for a, b in zip(inner, inner[1:]))  # siblings in turn
