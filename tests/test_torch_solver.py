@@ -5,7 +5,8 @@ Both solvers start from the same tamed numpy params and read the same
 `PoseDataSource` batches (uint8 canvases, compact annotations rasterized on
 the device), on the tiny model of tests/test_torch_training.py:
 - a 5-step trajectory (SGD with a multistep rate change, so Caffe's
-  rate-in-history shows; Adam with iter_size 2), losses and params;
+  rate-in-history shows; Adam with iter_size 2, whose two micro-batches of
+  one image make the SGD case's two images a step), losses and params;
 - snapshot at step 3 + restore + 2 steps == 5 straight steps (bit-equal);
 - `.npz` checkpoints across packages in both directions, training on
   identically; the same keys on both sides;
@@ -18,7 +19,14 @@ distance it moved from the init (measured <= 8e-5), + 1e-7: the gradients
 agree to ~1e-5 of their scale (tests/test_torch_training.py), and the
 difference grows with the steps. (At lr 0.01 this tiny model's loss jumps
 by 20% a step, which amplifies the difference to 0.4% of the distance;
-the rates here keep the dynamics smooth.)
+the rates here keep the dynamics smooth.) A max pool's gradient jumps where
+a window's two largest entries swap, and oneDNN on another thread count can
+round an exact f32 tie apart; Adam, which divides each step by the root of
+the gradient's running square, turns such a jump into a full step on the
+elements it reaches. (On two-image micro-batches the Adam trajectory's 10th
+forward met such a tie in the stem pool, and on 1-4 threads conv1/w missed
+by 1.2x the atol.) Both trajectories here measure within 0.05 of the atol
+on 1, 2, 4 and 8 threads.
 """
 
 import dataclasses
@@ -55,9 +63,9 @@ def _sp(pkg, solver, prefix, **kw):
                             snapshot=0, snapshot_prefix=str(prefix), **kw)
 
 
-def _batches(n):
+def _batches(n, size=2):
     src = source(device_targets=True)
-    return [src.next_batch(2) for _ in range(n)]
+    return [src.next_batch(size) for _ in range(n)]
 
 
 def _feeder(batches, start=0):
@@ -96,8 +104,8 @@ def assert_params_close(port_params, jax_params):
 
 @pytest.mark.parametrize("solver", sorted(SOLVERS))
 def test_five_step_trajectory_matches_jax(solver, tmp_path):
-    iters = 5 * SOLVERS[solver].get("iter_size", 1)
-    batches = _batches(iters)
+    iter_size = SOLVERS[solver].get("iter_size", 1)
+    batches = _batches(5 * iter_size, size=2 // iter_size)
     jsol, lines = jax_solver(solver, batches, tmp_path / "j"), []
     tsol = port_solver(solver, batches, tmp_path / "t", log=lines.append)
     for step in range(5):
