@@ -764,16 +764,15 @@ def _view(geometry, fill):
     return fill(numel, getattr(torch, dtype.split(".")[-1])).as_strided(shape, strides, offset)
 
 
-def replay_path_geometries(epilogue: dict, recorded: dict, decode: dict,
-                           device: str = "cuda") -> dict:
+def replay_path_geometries(recorded: dict, device: str = "cuda") -> dict:
     """Every distinct launch geometry (shape, strides, storage offset and
     mode) that the main paths gave conv_epilogue, int8_im2col,
     int8_epilogue, quantize_i8 and the decode's probability-map entry
-    (recorded by their wrappers: `epilogue` is conv_epilogue's record,
-    `recorded` int8_conv's, `decode` the decode's: its views and valid
-    sizes), replayed on fresh random inputs against the plain version on
-    the card, bit for bit. -> {kernel: number of geometries}. On the CPU
-    (a rehearsal) both sides take the plain version."""
+    (`recorded`: the seam's record per kernel name, `native.geometries`;
+    the decode's holds its views and valid sizes), replayed on fresh
+    random inputs against the plain version on the card, bit for bit.
+    -> {kernel: number of geometries}. On the CPU (a rehearsal) both sides
+    take the plain version."""
     from deepcut_tpu_torch.ops import conv_epilogue, int8_conv as ic
 
     gen = torch.Generator(device=device).manual_seed(SEED + 8)
@@ -793,6 +792,7 @@ def replay_path_geometries(epilogue: dict, recorded: dict, decode: dict,
         return _view(g, rand_i8 if g[0] == "torch.int8" else randn(30, torch.bfloat16))
 
     done = {}
+    epilogue = recorded.get("conv_epilogue", {})
     for (yg, has_bias, rg, relu) in epilogue:
         y = _view(yg, randn(4))
         bias = torch.randn(yg[1][1], generator=gen, device=device) if has_bias else None
@@ -802,14 +802,14 @@ def replay_path_geometries(epilogue: dict, recorded: dict, decode: dict,
             raise AssertionError(f"conv_epilogue differs from plain at the path's {yg} "
                                  f"bias={has_bias} residual={rg} relu={relu}")
     done["conv_epilogue"] = len(epilogue)
-    for (xg, k, stride, pad, dil, lhs, min_rows, width) in recorded.get("im2col_launches", {}):
+    for (xg, k, stride, pad, dil, lhs, min_rows, width) in recorded.get("int8_im2col", {}):
         x = _view(xg, rand_i8)
         kw = dict(stride=stride, pad=pad, dilation=dil, lhs_dilation=lhs, min_rows=min_rows,
                   width=width)
         if not torch.equal(ic.int8_im2col(x, k, **kw), ic.int8_im2col_plain(x, k, **kw)):
             raise AssertionError(f"int8_im2col differs from plain at the path's {xg} k={k} {kw}")
     for (ag, rg, relu, bf16, f32_out, _), (res_scale, requant_s) in recorded.get(
-            "epilogue_launches", {}).items():
+            "int8_epilogue", {}).items():
         acc = _view(ag, rand_i32)
         c = ag[1][1]
         scale = (torch.rand(c, generator=gen, device=device) * 1e-3 + 1e-5) * 0.0123
@@ -832,17 +832,17 @@ def replay_path_geometries(epilogue: dict, recorded: dict, decode: dict,
             return v
         return fill
 
-    for xg, (s,) in recorded.get("quantize_launches", {}).items():
+    for xg, (s,) in recorded.get("quantize_i8", {}).items():
         x = _view(xg, planted(s))
         if not torch.equal(ic.quantize_i8(x, s), ic.quantize_i8_plain(x, s)):
             raise AssertionError(f"quantize_i8 differs from plain at the path's {xg} s={s}")
-    for name, key in (("int8_im2col", "im2col_launches"), ("int8_epilogue", "epilogue_launches"),
-                      ("quantize_i8", "quantize_launches")):
-        done[name] = len(recorded.get(key, {}))
+    for name in ("int8_im2col", "int8_epilogue", "quantize_i8"):
+        done[name] = len(recorded.get(name, {}))
 
     def probs(n, _):   # probabilities in steps of 1/64: ties across the map
         return torch.round(torch.rand(n, generator=gen, device=device) * 64) / 64
 
+    decode = recorded.get("decode_pose", {})
     for (pg, lg, vh, vw), (scale,) in decode.items():
         prob, loc = _view(pg, probs), _view(lg, randn(2))
         got = cuda_decode.decode_pose(prob, loc, list(vh), list(vw), scale)
@@ -3843,9 +3843,9 @@ def _s_rank(rank: int, port: int, spec_path: str, out_dir: str, spawned: float) 
                "s3": _s3_serving(spec, mesh)}
         if spec["device"] != "cpu":
             out["counts"] = _counts()
-            epilogue, recorded, decode = _record_geometries(False)
-            out["replayed"] = replay_path_geometries(epilogue, recorded, decode, device=str(dev))
-            out["im2col_pads"] = sorted({g[3] for g in recorded.get("im2col_launches", {})})
+            recorded = _record_geometries(False)
+            out["replayed"] = replay_path_geometries(recorded, device=str(dev))
+            out["im2col_pads"] = sorted({g[3] for g in recorded.get("int8_im2col", {})})
         with open(Path(out_dir) / f"s_rank{rank}.pkl", "wb") as f:
             pickle.dump(out, f)
     finally:
@@ -5032,33 +5032,31 @@ KERNELS = {  # name -> (source, what it replaces)
 }
 
 
+# the seam's kernel names (`native.counts`) under the names this check logs
+COUNTED = {"conv_epilogue": "conv_epilogue", "decode_pose": "decode_fused",
+           "decode_pose_prob": "decode_pose", "int8_im2col": "int8_im2col",
+           "int8_epilogue": "int8_epilogue", "quantize_i8": "quantize_i8"}
+
+
 def _counts() -> dict:
-    from deepcut_tpu_torch.ops import conv_epilogue, int8_conv
+    from deepcut_tpu_torch import native
 
-    return {"conv_epilogue": conv_epilogue.launches, "decode_pose": cuda_decode.launches,
-            "decode_pose_prob": cuda_decode.prob_launches,
-            "int8_im2col": int8_conv.im2col_launches,
-            "int8_epilogue": int8_conv.epilogue_launches,
-            "quantize_i8": int8_conv.quantize_launches}
+    counts = native.counts()
+    return {name: counts.get(kernel, 0) for name, kernel in COUNTED.items()}
 
 
-def _record_geometries(on: bool):
+def _record_geometries(on: bool) -> dict:
     """Start recording the kernels' launch geometries, or stop; returns
-    what was recorded until then."""
-    from deepcut_tpu_torch.ops import conv_epilogue, int8_conv
+    what was recorded until then, per kernel name."""
+    from deepcut_tpu_torch import native
 
-    recorded = (conv_epilogue.geometries, int8_conv.geometries, cuda_decode.geometries)
-    conv_epilogue.record_geometries(on)
-    int8_conv.record_geometries(on)
-    cuda_decode.record_geometries(on)
-    return recorded
+    return native.record_geometries(on) or {}
 
 
 def _zero_counts() -> None:
-    from deepcut_tpu_torch.ops import conv_epilogue, int8_conv
+    from deepcut_tpu_torch import native
 
-    conv_epilogue.launches = cuda_decode.launches = cuda_decode.prob_launches = 0
-    int8_conv.reset_counts()
+    native.reset_counts()
 
 
 # the phases and steps whose seconds main() logs (`time_phases`), in run order
@@ -5147,7 +5145,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_s_") as tmp:   # their own counts
         spatial = phase_spatial(Path(tmp), card)["counts"]             # and read them here
     spatial_ref = _counts()                      # S's one-process references: not counted
-    replay_path_geometries(*_record_geometries(False))
+    replay_path_geometries(_record_geometries(False))
     _zero_counts()                               # the engine's training path starts here
     phase_engine(card)
     engine = _counts()                           # and ends here

@@ -16,69 +16,20 @@ launches the kernel, which writes the result over ``y``, or raises.
 from __future__ import annotations
 
 import ctypes
-import threading
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
-from deepcut_tpu_torch.native import PKG, NativeLib, build
+from deepcut_tpu_torch import native
+from deepcut_tpu_torch.native import PKG, NativeLib
 
-LIB = NativeLib(PKG / "csrc" / "conv_epilogue.cu")
-
-# kernel launches since the last reset (CPU calls do not count), those a
-# CUDA graph replays included: a capture records launches without running
-# them, so its caller takes them back off and adds them per replay
-# (`add_launches`, as `pose.graphs` does)
-launches = 0
-_thread = threading.local()   # what this thread added to `launches` (`thread_launches`)
-# while a dict (`record_geometries`): each distinct launch geometry (shapes,
-# strides, modes), so that a caller can replay every geometry a path gave
-# the kernel against its plain version
-geometries: Optional[Dict[tuple, tuple]] = None
-_lock = threading.Lock()
-_lib = None
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build(LIB)[0]))
-            fn = lib.conv_epilogue_launch
-            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 3
-                           + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
-
-
-def view_geometry(t: Optional[torch.Tensor]):
-    """A tensor view's (dtype, shape, strides, storage offset) or None."""
-    if t is None:
-        return None
-    return (str(t.dtype), tuple(t.shape), tuple(t.stride()), t.storage_offset())
-
-
-def record_geometries(on: bool = True) -> None:
-    """Start (afresh) or stop recording launch geometries (`geometries`)."""
-    global geometries
-    with _lock:
-        geometries = {} if on else None
-
-
-def thread_launches() -> int:
-    """What the calling thread has added to `launches`: a capture counts
-    the launches it records by this, which other threads' do not move."""
-    return getattr(_thread, "launches", 0)
-
-
-def add_launches(n: int) -> None:
-    """Add `n` (which may be negative) to `launches`: the launches a CUDA
-    graph's replay runs, or those its capture recorded without running."""
-    global launches
-    _thread.launches = thread_launches() + n
-    with _lock:
-        launches += n
+P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+LIB = NativeLib(PKG / "csrc" / "conv_epilogue.cu", entries={
+    "conv_epilogue_launch": [P] * 3 + [I32] * 4 + [I64] * 3 + [I32] * 3 + [P]})
+KERNEL = native.Kernel("conv_epilogue", LIB)
+# `launches`: the kernel's live launch count (`native.counters`), those a
+# CUDA graph replays included
+__getattr__ = native.counters(__name__, launches=KERNEL)
 
 
 def conv_epilogue_plain(y: torch.Tensor, bias: Optional[torch.Tensor],
@@ -121,28 +72,17 @@ def conv_epilogue(y: torch.Tensor, bias: Optional[torch.Tensor],
     """(N, C, H, W) f32 conv output (channels_last on the card) + (C,) f32
     bias [+ residual holding bf16 values] -> bf16 values in f32. On the
     card the result is written over ``y`` and ``y`` is returned."""
-    global launches
-    if y.device.type == "cpu":
+    if not native.on_card(y, "conv_epilogue"):
         return conv_epilogue_plain(y, bias, residual, relu)
-    if y.device.type != "cuda":
-        raise ValueError(f"conv_epilogue: no kernel for device {y.device}")
     _check(y, bias, residual)
     n, c, h, w = y.shape
     ptrs = [y, bias, residual]
     rn, _, rh, rw = residual.stride() if residual is not None else (0, 0, 0, 0)
     vec4 = (c % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in ptrs if t is not None)
             and rn % 4 == 0 and rh % 4 == 0 and rw % 4 == 0)
-    stream = torch.cuda.current_stream(y.device).cuda_stream
-    err = _library().conv_epilogue_launch(
-        y.data_ptr(), bias.data_ptr() if bias is not None else None,
-        residual.data_ptr() if residual is not None else None,
-        n * h * w, c, h, w, rn, rh, rw, int(relu), int(vec4), y.device.index, stream)
-    if err != 0:
-        raise RuntimeError(f"conv_epilogue kernel launch failed: cudaError {err}")
-    _thread.launches = thread_launches() + 1
-    with _lock:
-        launches += 1
-        if geometries is not None:
-            geometries.setdefault((view_geometry(y), bias is not None, view_geometry(residual),
-                                   relu), ())
+    KERNEL(y.device, y.data_ptr(), bias.data_ptr() if bias is not None else None,
+           residual.data_ptr() if residual is not None else None,
+           n * h * w, c, h, w, rn, rh, rw, int(relu), int(vec4),
+           geometry=lambda: ((native.view_geometry(y), bias is not None,
+                              native.view_geometry(residual), relu), ()))
     return y

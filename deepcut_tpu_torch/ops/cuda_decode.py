@@ -24,67 +24,51 @@ the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import threading
-from typing import Dict, List, Optional, Sequence, Union
+import functools
+from typing import Dict, List, Sequence, Union
 
 import torch
 
-from deepcut_tpu_torch.native import PKG, NativeLib, build
-from deepcut_tpu_torch.ops.conv_epilogue import view_geometry
+from deepcut_tpu_torch import native
+from deepcut_tpu_torch.native import PKG, NativeLib
 from deepcut_tpu_torch.pose.decode import decode_pose_batch
 
-LIB = NativeLib(PKG / "csrc" / "decode_pose.cu")
 
-launches = 0       # fused-entry launches since the last reset (CPU calls do not count)
-prob_launches = 0  # probability-map entry launches, likewise
-# while a dict (`record_geometries`): each distinct launch geometry of the
-# probability-map entry (prob's and loc's views, the valid sizes) -> the
-# first call's scale, so that a caller can replay every geometry a path
-# gave the kernel against its plain version
-geometries: Optional[Dict[tuple, tuple]] = None
+class _Geometry(ctypes.Structure):
+    """The kernel's ProbGeometry: a checked (prob, loc) view geometry."""
+    _fields_ = ([(f, ctypes.c_longlong) for f in ("pn", "pj", "ph", "ln", "lj", "lh")]
+                + [(f, ctypes.c_int) for f in ("n", "J", "h", "w", "granule", "device")])
+
+
+P, I32, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+LIB = NativeLib(PKG / "csrc" / "decode_pose.cu", entries={
+    "decode_pose_launch": [ctypes.POINTER(_Geometry)] + [P] * 4 + [F32, P],
+    "decode_fused_launch": ([P] * 2 + [I64] * 2 + [I32] * 6 + [F32]
+                            + [ctypes.POINTER(I32)] * 2 + [I32, P]),
+    "decode_fused_cluster_size": [I32], "decode_pose_cluster": [], "decode_max_batch": [],
+    "decode_fused_max_joints": [], "decode_fused_stage_floats": []})
+FUSED = native.Kernel("decode_fused", LIB)
+PROB = native.Kernel("decode_pose", LIB, device_arg=False)
+# `launches` and `prob_launches`: the fused and probability-map entries'
+# live launch counts (`native.counters`)
+__getattr__ = native.counters(__name__, launches=FUSED, prob_launches=PROB)
 _plans: Dict[tuple, tuple] = {}  # the prob entry's checked launch arguments per geometry
-_lock = threading.Lock()
-_lib = None
-_caps = None  # images per launch, the fused entry's joints and staged floats; read once
 
 
-def _library() -> ctypes.CDLL:
-    global _lib, _caps
-    if _lib is not None:
-        return _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build(LIB)[0]))
-            fn = lib.decode_pose_launch
-            fn.argtypes = ([ctypes.POINTER(_Geometry)] + [ctypes.c_void_p] * 4
-                           + [ctypes.c_float, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            fn = lib.decode_fused_launch
-            fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 6
-                           + [ctypes.c_float] + [ctypes.POINTER(ctypes.c_int)] * 2
-                           + [ctypes.c_int, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            lib.decode_fused_cluster_size.argtypes = [ctypes.c_int]
-            _caps = (lib.decode_max_batch(), lib.decode_fused_max_joints(),
-                     lib.decode_fused_stage_floats())
-            _lib = lib
-    return _lib
-
-
-def record_geometries(on: bool = True) -> None:
-    """Start (afresh) or stop recording the probability-map entry's launch
-    geometries (`geometries`)."""
-    global geometries
-    with _lock:
-        geometries = {} if on else None
+@functools.lru_cache(maxsize=None)
+def _capacities() -> tuple:
+    """Images per launch, the fused entry's joints and staged floats; read once."""
+    lib = native.load(LIB)
+    return lib.decode_max_batch(), lib.decode_fused_max_joints(), lib.decode_fused_stage_floats()
 
 
 def fused_limits() -> dict:
     """The kernel's capacities, read from the library: images per launch,
     the fused entry's joints and staged floats per row, and the cluster
     sizes both entries launch with on the current device."""
-    lib = _library()
-    return {"max_batch": _caps[0], "max_joints": _caps[1], "stage_floats": _caps[2],
+    lib = native.load(LIB)
+    max_batch, max_joints, stage_floats = _capacities()
+    return {"max_batch": max_batch, "max_joints": max_joints, "stage_floats": stage_floats,
             "cluster": lib.decode_fused_cluster_size(torch.cuda.current_device()),
             "prob_cluster": lib.decode_pose_cluster()}
 
@@ -105,17 +89,13 @@ def decode_fused(fused: torch.Tensor, num_joints: int, valid_h: Sequence[int],
     channels) + each image's valid cell rows / columns -> (N, 5, J) f32
     pose. On the card the map must be f32 and channels_last-contiguous,
     as the serving heads give it."""
-    global launches
-    if fused.device.type == "cpu":
+    if not native.on_card(fused, "decode_fused"):
         return decode_fused_plain(fused, num_joints, valid_h, valid_w, scale)
-    if fused.device.type != "cuda":
-        raise ValueError(f"decode_fused: no kernel for device {fused.device}")
     if (fused.dtype != torch.float32 or fused.dim() != 4
             or not fused.is_contiguous(memory_format=torch.channels_last)):
         raise ValueError(f"decode_fused: the map must be 4-D f32 channels_last, got "
                          f"{tuple(fused.shape)} {fused.dtype} strides {fused.stride()}")
-    lib = _library()
-    max_batch, max_joints, stage_floats = _caps
+    max_batch, max_joints, stage_floats = _capacities()
     n, C, h, w = fused.shape
     J = int(num_joints)
     if not (1 <= n <= max_batch and 1 <= J <= max_joints and C >= 3 * J and h * w >= 1
@@ -130,13 +110,8 @@ def decode_fused(fused: torch.Tensor, num_joints: int, valid_h: Sequence[int],
     vh = (ctypes.c_int * n)(*[int(v) for v in valid_h])
     vw = (ctypes.c_int * n)(*[int(v) for v in valid_w])
     out = torch.empty((n, 5, J), dtype=torch.float32, device=fused.device)
-    stream = torch.cuda.current_stream(fused.device).cuda_stream
-    err = lib.decode_fused_launch(fused.data_ptr(), out.data_ptr(), sn, sh, n, J, h, w, C,
-                                  granule, float(scale), vh, vw, fused.device.index, stream)
-    if err != 0:
-        raise RuntimeError(f"decode_fused kernel launch failed: cudaError {err}")
-    with _lock:
-        launches += 1
+    FUSED(fused.device, fused.data_ptr(), out.data_ptr(), sn, sh, n, J, h, w, C, granule,
+          float(scale), vh, vw)
     return out
 
 
@@ -180,12 +155,6 @@ def _check(prob: torch.Tensor, loc: torch.Tensor) -> None:
                              f"read as runs of floats), got strides {t.stride()}")
 
 
-class _Geometry(ctypes.Structure):
-    """The kernel's ProbGeometry: a checked (prob, loc) view geometry."""
-    _fields_ = ([(f, ctypes.c_longlong) for f in ("pn", "pj", "ph", "ln", "lj", "lh")]
-                + [(f, ctypes.c_int) for f in ("n", "J", "h", "w", "granule", "device")])
-
-
 def _plan(prob: torch.Tensor, loc: torch.Tensor) -> tuple:
     """A (prob, loc) view geometry, checked once: the kernel's geometry
     (with the widest load, 4, 2 or 1 floats, that the view's width and
@@ -207,14 +176,12 @@ def decode_pose(prob: torch.Tensor, loc: torch.Tensor, valid_h: Sizes, valid_w: 
     pose, x, y and the offsets divided by `scale`. See `pose.decode` for the
     semantics. On the card prob and loc may be views (row-cropped, channel
     sliced, permuted) whose column stride is 1; they are read in place."""
-    global prob_launches
-    if not prob.is_cuda:
-        if prob.device.type == "cpu":
-            vh, vw = (v if isinstance(v, torch.Tensor) else torch.tensor([int(x) for x in v])
-                      for v in (valid_h, valid_w))
-            return decode_pose_batch(prob, loc, scale=scale, valid_hw=(vh, vw))
-        _check(prob, loc)
-        raise ValueError(f"decode_pose: no kernel for device {prob.device}")
+    if prob.device.type not in ("cpu", "cuda"):
+        _check(prob, loc)   # what the kernel would not take raises before "no kernel"
+    if not native.on_card(prob, "decode_pose"):
+        vh, vw = (v if isinstance(v, torch.Tensor) else torch.tensor([int(x) for x in v])
+                  for v in (valid_h, valid_w))
+        return decode_pose_batch(prob, loc, scale=scale, valid_hw=(vh, vw))
     # checked once per view geometry: a path repeats a few
     key = (prob.shape, prob.stride(), loc.shape, loc.stride(), prob.dtype, loc.dtype,
            prob.device, loc.device)
@@ -226,16 +193,10 @@ def decode_pose(prob: torch.Tensor, loc: torch.Tensor, valid_h: Sizes, valid_w: 
     geometry, ref = plan
     n = geometry.n
     vh, vw = _sizes("valid_h", valid_h, n), _sizes("valid_w", valid_w, n)
-    lib = _library()
     out = torch.empty((n, 5, geometry.J), dtype=torch.float32, device=prob.device)
-    err = lib.decode_pose_launch(ref, prob.data_ptr(), loc.data_ptr(), out.data_ptr(),
-                                 (ctypes.c_int * (2 * n))(*vh, *vw), float(scale),
-                                 torch._C._cuda_getCurrentRawStream(geometry.device))
-    if err != 0:
-        raise RuntimeError(f"decode_pose kernel launch failed: cudaError {err}")
-    with _lock:
-        prob_launches += -(-n // _caps[0])   # one launch per kMaxBatch images
-        if geometries is not None:
-            geometries.setdefault((view_geometry(prob), view_geometry(loc), tuple(vh),
-                                   tuple(vw)), (float(scale),))
+    PROB(prob.device, ref, prob.data_ptr(), loc.data_ptr(), out.data_ptr(),
+         (ctypes.c_int * (2 * n))(*vh, *vw), float(scale),
+         count=-(-n // _capacities()[0]),   # one launch per kMaxBatch images
+         geometry=lambda: ((native.view_geometry(prob), native.view_geometry(loc), tuple(vh),
+                            tuple(vw)), (float(scale),)))
     return out

@@ -44,83 +44,32 @@ in int8 instead of accumulating in int32.
 from __future__ import annotations
 
 import ctypes
-import threading
-from typing import Dict, Optional, Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deepcut_tpu_torch.native import PKG, NativeLib, build
-from deepcut_tpu_torch.ops.conv_epilogue import view_geometry
+from deepcut_tpu_torch import native
+from deepcut_tpu_torch.native import PKG, NativeLib, view_geometry
 
-LIB = NativeLib(PKG / "csrc" / "int8_conv.cu")
-
-# kernel launches since the last reset (CPU calls do not count)
-im2col_launches = 0
-epilogue_launches = 0
-quantize_launches = 0
-# while a dict (`record_geometries`): per kernel, each distinct launch
-# geometry (shapes, strides, modes) -> the first call's scales, so that a
-# caller can replay every geometry a path gave the kernels against their
-# plain versions
-geometries: Optional[Dict[str, Dict[tuple, tuple]]] = None
-_lock = threading.Lock()
-_lib = None
+P, I32, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+LIB = NativeLib(PKG / "csrc" / "int8_conv.cu", entries={
+    "int8_im2col_launch": [P, P] + [I32] * 16 + [I32, P],
+    "int8_epilogue_launch": [P, I32, P, P, P, I32, F32, I64, I64, I64, P, P, F32] + [I32] * 7
+                            + [I32, P],
+    "quantize_i8_launch": [P, P, I64, F32, I32, I32, P]})
+IM2COL = native.Kernel("int8_im2col", LIB)
+EPILOGUE = native.Kernel("int8_epilogue", LIB)
+QUANTIZE = native.Kernel("quantize_i8", LIB)
+# the kernels' live launch counts (`native.counters`)
+__getattr__ = native.counters(__name__, im2col_launches=IM2COL, epilogue_launches=EPILOGUE,
+                              quantize_launches=QUANTIZE)
 
 # torch._int_mm on the card takes more than 16 rows and multiples of 8 for
 # the inner and output widths (read on the card); shorter A matrices get
 # zero rows, and the widths zero columns
 MIN_ROWS = 17
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build(LIB)[0]))
-            ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-            lib.int8_im2col_launch.argtypes = [ptr, ptr] + [i32] * 16 + [i32, ptr]
-            lib.int8_epilogue_launch.argtypes = ([ptr, i32, ptr, ptr, ptr, i32, f32, i64, i64, i64,
-                                                  ptr, ptr, f32] + [i32] * 7 + [i32, ptr])
-            lib.quantize_i8_launch.argtypes = [ptr, ptr, i64, f32, i32, i32, ptr]
-            for fn in (lib.int8_im2col_launch, lib.int8_epilogue_launch, lib.quantize_i8_launch):
-                fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
-
-
-def _count(name: str, geometry: tuple, values: tuple = ()) -> None:
-    with _lock:
-        globals()[name] += 1
-        if geometries is not None:
-            geometries.setdefault(name, {}).setdefault(geometry, values)
-
-
-def record_geometries(on: bool = True) -> None:
-    """Start (afresh) or stop recording each distinct launch geometry (see
-    `geometries`)."""
-    global geometries
-    with _lock:
-        geometries = {} if on else None
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _device_check(t: torch.Tensor, what: str) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises on any other."""
-    if t.device.type == "cuda":
-        return True
-    if t.device.type != "cpu":
-        raise ValueError(f"{what}: no kernel for device {t.device}")
-    return False
 
 
 # -- exact arithmetic helpers -------------------------------------------------
@@ -289,7 +238,7 @@ def pack_deconv_weight(w_q: torch.Tensor) -> torch.Tensor:
 # -- the kernels' wrappers ------------------------------------------------------
 def quantize_i8(x: torch.Tensor, s) -> torch.Tensor:
     """f32 tensor -> int8 of the same shape and memory layout at scale s."""
-    if not _device_check(x, "quantize_i8"):
+    if not native.on_card(x, "quantize_i8"):
         return quantize_i8_plain(x, s)
     if x.dtype != torch.float32 or not (
             x.is_contiguous() or x.is_contiguous(memory_format=torch.channels_last)):
@@ -297,9 +246,8 @@ def quantize_i8(x: torch.Tensor, s) -> torch.Tensor:
     y = torch.empty_like(x, dtype=torch.int8)
     n = x.numel()
     vec4 = n % 4 == 0 and x.data_ptr() % 16 == 0 and y.data_ptr() % 4 == 0
-    _raise_on(_library().quantize_i8_launch(x.data_ptr(), y.data_ptr(), n, recip_f32(s),
-                                            int(vec4), x.device.index, _stream(x)), "quantize_i8")
-    _count("quantize_launches", view_geometry(x), (float(s),))
+    QUANTIZE(x.device, x.data_ptr(), y.data_ptr(), n, recip_f32(s), int(vec4),
+             geometry=lambda: (view_geometry(x), (float(s),)))
     return y
 
 
@@ -309,7 +257,7 @@ def int8_im2col(x: torch.Tensor, k: Kernel, *, stride=1, pad=0, dilation=1, lhs_
     or (kh, kw) -> (max(N*oh*ow, min_rows), max(kh*kw*C, width)) int8 patch
     rows; the rows past N*oh*ow and the columns past kh*kw*C are zero (the
     GEMM's padding). pad: one value or (pad_h, pad_w)."""
-    if not _device_check(x, "int8_im2col"):
+    if not native.on_card(x, "int8_im2col"):
         return int8_im2col_plain(x, k, stride=stride, pad=pad, dilation=dilation,
                                  lhs_dilation=lhs_dilation, min_rows=min_rows, width=width)
     if x.dtype != torch.int8 or x.dim() != 4 or not x.is_contiguous(memory_format=torch.channels_last):
@@ -333,11 +281,10 @@ def int8_im2col(x: torch.Tensor, k: Kernel, *, stride=1, pad=0, dilation=1, lhs_
             out[rows:].zero_()
     vec = next(v for v in (16, 4, 1) if c % v == 0 and shape[1] % v == 0
                and x.data_ptr() % v == 0 and out.data_ptr() % v == 0)
-    _raise_on(_library().int8_im2col_launch(
-        x.data_ptr(), out.data_ptr(), n, h, w, c, kh, kw, stride, ph, pw, dilation, lhs_dilation,
-        oh, ow, rows, shape[1], vec, x.device.index, _stream(x)), "int8_im2col")
-    _count("im2col_launches", (view_geometry(x), (kh, kw), stride, pad, dilation, lhs_dilation,
-                               min_rows, width))
+    IM2COL(x.device, x.data_ptr(), out.data_ptr(), n, h, w, c, kh, kw, stride, ph, pw, dilation,
+           lhs_dilation, oh, ow, rows, shape[1], vec,
+           geometry=lambda: ((view_geometry(x), (kh, kw), stride, pad, dilation, lhs_dilation,
+                              min_rows, width), ()))
     return out
 
 
@@ -400,7 +347,7 @@ def int8_epilogue(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     channels_last tensors: (N, C, H, W) f32 if ``f32_out`` and int8 if
     ``requant_s`` is given; the residual may be a strided view (a crop)
     with channel stride 1."""
-    if not _device_check(acc, "int8_epilogue"):
+    if not native.on_card(acc, "int8_epilogue"):
         return int8_epilogue_plain(acc, scale, bias, residual, residual_scale=residual_scale,
                                    relu=relu, bf16=bf16, f32_out=f32_out, requant_s=requant_s)
     _epilogue_check(acc, scale, bias, residual, residual_scale, requant_s, f32_out)
@@ -419,22 +366,13 @@ def int8_epilogue(acc: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             and (out_q is None or out_q.data_ptr() % 4 == 0)
             and (residual is None or (residual.data_ptr() % res_align == 0
                                       and rn % 4 == 0 and rh % 4 == 0 and rw % 4 == 0)))
-    _raise_on(_library().int8_epilogue_launch(
-        acc.data_ptr(), ldc, scale.data_ptr(), bias.data_ptr(),
-        residual.data_ptr() if residual is not None else None, kind,
-        float(residual_scale) if kind == 2 else 0.0, rn, rh, rw,
-        out.data_ptr() if out is not None else None,
-        out_q.data_ptr() if out_q is not None else None,
-        recip_f32(requant_s) if requant_s is not None else 0.0,
-        n * h * w, c, h, w, int(bf16), int(relu), int(vec4), acc.device.index, _stream(acc)),
-        "int8_epilogue")
-    _count("epilogue_launches",
-           (view_geometry(acc), view_geometry(residual), relu, bf16, f32_out, requant_s is not None),
-           (residual_scale, requant_s))
+    EPILOGUE(acc.device, acc.data_ptr(), ldc, scale.data_ptr(), bias.data_ptr(),
+             residual.data_ptr() if residual is not None else None, kind,
+             float(residual_scale) if kind == 2 else 0.0, rn, rh, rw,
+             out.data_ptr() if out is not None else None,
+             out_q.data_ptr() if out_q is not None else None,
+             recip_f32(requant_s) if requant_s is not None else 0.0,
+             n * h * w, c, h, w, int(bf16), int(relu), int(vec4),
+             geometry=lambda: ((view_geometry(acc), view_geometry(residual), relu, bf16, f32_out,
+                                requant_s is not None), (residual_scale, requant_s)))
     return out, out_q
-
-
-def reset_counts() -> None:
-    global im2col_launches, epilogue_launches, quantize_launches
-    with _lock:
-        im2col_launches = epilogue_launches = quantize_launches = 0

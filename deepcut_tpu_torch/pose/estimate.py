@@ -204,9 +204,7 @@ class PoseEstimator:
         self._matrices: Dict[Tuple[int, int], torch.Tensor] = {}
         self._mean = torch.tensor(MEAN_BGR, dtype=torch.float32, device=self.device)
         self._int8 = False
-        self._graphs = NetGraphs(self._forward_fused, self._net_eager, self.GRAPH_SHAPES)
-        # captures, replays and eager network calls of the batched paths
-        self.graph_stats = self._graphs.stats
+        self._new_graphs()
 
     # -- int8 serving --------------------------------------------------------
     @property
@@ -261,7 +259,18 @@ class PoseEstimator:
         self.model = DeeperCutInt8(qparams, act_scales, self.cfg,
                                    int8_deconv=int8_deconv).to(self.device)
         self._int8 = True
-        self._graphs.clear()
+        self._new_graphs()
+
+    def _new_graphs(self) -> None:
+        """An empty graph cache of this estimator's own (`pose.graphs`):
+        at construction, and where `serve_int8` swaps the model, since the
+        graphs captured the old one and a ``copy.copy`` (the demo's and the
+        HTTP service's int8 estimator) shares its original's cache until
+        then. ``graph_stats`` counts its captures, replays and eager
+        network calls."""
+        self._graphs = NetGraphs(self._forward_fused, self._net_eager, self.GRAPH_SHAPES,
+                                 lambda: self._graphable())
+        self.graph_stats = self._graphs.stats
 
     # -- device pieces -----------------------------------------------------
     def _matrix(self, in_size: int, out_size: int) -> torch.Tensor:
@@ -381,22 +390,16 @@ class PoseEstimator:
         (`_canvases`), before the next chunk's are made: the device runs
         chunk k while the host stages chunk k+1. The decode reads the heads'
         unsliced map: the CUDA kernel's fused entry on the card, its plain
-        version on the CPU. Where `_graphable`, each chunk's network is its
-        shape's CUDA graph once the shape recurs (`pose.graphs`), else the
-        eager forward, op by op."""
+        version on the CPU. `pose.graphs` runs each chunk's network: its
+        shape's CUDA graph where `_graphable` and the shape recurs, else
+        the eager forward, op by op."""
         c = self.BATCH_CHUNK
-        graphed = self._graphable()
-        if not graphed:
-            self._graphs.count_eager(-(-len(images) // c))
         poses = []
         for i in range(0, len(images), c):
             chunk = self._canvases(images[i:i + c], scale, canvas_h, canvas_w)
             vh, vw = valid_h[i:i + c], valid_w[i:i + c]
-            if graphed:
-                poses.append(self._graphs.run(
-                    chunk, lambda fused: self._decode_chunk(fused, vh, vw, scale)))
-            else:
-                poses.append(self._decode_chunk(self._net_eager(chunk), vh, vw, scale))
+            poses.append(self._graphs.run(
+                chunk, lambda fused: self._decode_chunk(fused, vh, vw, scale)))
         return torch.cat(poses)
 
     def _wait(self, poses: torch.Tensor) -> np.ndarray:

@@ -23,9 +23,10 @@ The warm-up runs on a side stream (so cuDNN's plans and workspace exist),
 then the capture under a ``pose.capture`` span. Each chunk after that copies
 its canvases into the graph's static input and replays it inside the
 caller's ``pose.net`` span; every span stays outside the capture, where the
-profiler can record it. The conv epilogue's launch counter counts what the
-device runs: the launches the capture's thread recorded are taken back off
-it, and each replay adds them again (`conv_epilogue.launches`).
+profiler can record it. The kernels' launch counts (`native.counts`) count
+what the device runs: the launches the capture's thread records go to the
+graph's own tally (`native.tally`), and each replay adds them
+(`native.add_counts`).
 
 The graphs of one estimator share one memory pool, so their intermediates
 share memory. One lock serialises their use, from the copy-in until the
@@ -42,7 +43,7 @@ from typing import Callable, Dict, Tuple, TypeVar
 
 import torch
 
-from deepcut_tpu_torch.ops import conv_epilogue
+from deepcut_tpu_torch import native
 from deepcut_tpu_torch.spans import POSE_CAPTURE, POSE_NET, span
 
 Key = Tuple[int, int, int]
@@ -54,13 +55,13 @@ AGE = 16    # uses per place in the cache between two halvings of the use counts
 
 class NetGraph:
     """One captured forward: its static NHWC input, the graph, its static
-    output (the map the forward returned) and the conv epilogue launches
-    one replay runs."""
+    output (the map the forward returned) and the hand-written kernels'
+    launches one replay runs, per kernel name."""
 
     __slots__ = ("static_in", "graph", "static_out", "launches")
 
     def __init__(self, static_in: torch.Tensor, graph, static_out: torch.Tensor,
-                 launches: int):
+                 launches: Dict[str, int]):
         self.static_in, self.graph = static_in, graph
         self.static_out, self.launches = static_out, launches
 
@@ -87,44 +88,31 @@ def capture(forward: Callable[[torch.Tensor], torch.Tensor], chunk: torch.Tensor
         forward(static_in)
     torch.cuda.current_stream(dev).wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    before = conv_epilogue.thread_launches()
-    try:
-        with span(POSE_CAPTURE), torch.inference_mode(), \
-                torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
-            static_out = forward(static_in)
-    finally:
-        launches = conv_epilogue.thread_launches() - before
-        conv_epilogue.add_launches(-launches)   # recorded into the graph, not run
+    with native.tally() as launches, span(POSE_CAPTURE), torch.inference_mode(), \
+            torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+        static_out = forward(static_in)
     return NetGraph(static_in, graph, static_out, launches)
 
 
 class NetGraphs:
     """The captured forwards of one estimator, keyed by chunk shape (module
-    docstring); `eager` runs a chunk's forward op by op where a shape has no
-    graph. ``stats`` counts ``captures``, ``replays`` and ``eager`` network
-    calls (those of shapes with no graph, each capture's warm-up, and the
-    chunks a caller ran eagerly itself, `count_eager`): the hit share is
-    replays over replays plus eager calls."""
+    docstring); `eager` runs a chunk's forward op by op where `graphable()`
+    is false or a shape has no graph. ``stats`` counts ``captures``,
+    ``replays`` and ``eager`` network calls (those run eagerly and each
+    capture's warm-up): the hit share is replays over replays plus eager
+    calls."""
 
     def __init__(self, forward: Callable[[torch.Tensor], torch.Tensor],
-                 eager: Callable[[torch.Tensor], torch.Tensor], capacity: int):
+                 eager: Callable[[torch.Tensor], torch.Tensor], capacity: int,
+                 graphable: Callable[[], bool]):
         self.forward, self.eager, self.capacity = forward, eager, capacity
+        self.graphable = graphable
         self.entries: "OrderedDict[Key, NetGraph]" = OrderedDict()
         self.uses: Dict[Key, int] = {}   # per shape, halved every AGE * capacity uses
         self.stats: Dict[str, int] = {"captures": 0, "replays": 0, "eager": 0}
         self._lock = threading.Lock()
         self._pool = None
         self._since_aged = 0
-
-    def count_eager(self, calls: int) -> None:
-        """Count `calls` network calls that ran eagerly."""
-        with self._lock:
-            self.stats["eager"] += calls
-
-    def clear(self) -> None:
-        """Drop every graph (the model they read is gone)."""
-        with self._lock:
-            self.entries.clear()
 
     def _use(self, key: Key) -> int:
         """Count a use of `key`; its count after any halving."""
@@ -166,15 +154,16 @@ class NetGraphs:
 
     def run(self, chunk: torch.Tensor, consume: Callable[[torch.Tensor], T]) -> T:
         """`consume(map)` of the forward of `chunk`, an (n, H, W, 3) f32
-        canvas batch: by its shape's graph, or eagerly where the shape has
-        none. A graph's map is its static output: `consume` enqueues its
-        reads on the stream before the next replay can overwrite it."""
+        canvas batch: by its shape's graph, or eagerly where `graphable()`
+        is false or the shape has none. A graph's map is its static output:
+        `consume` enqueues its reads on the stream before the next replay
+        can overwrite it."""
         with self._lock:
-            entry = self._entry(chunk)
+            entry = self._entry(chunk) if self.graphable() else None
             if entry is not None:
                 with span(POSE_NET):
                     out = entry.replay(chunk)
-                conv_epilogue.add_launches(entry.launches)
+                native.add_counts(entry.launches)
                 self.stats["replays"] += 1
                 return consume(out)
             self.stats["eager"] += 1

@@ -17,7 +17,6 @@ fails and says so; it never skips a library.
 
 from __future__ import annotations
 
-import ctypes
 import sys
 from pathlib import Path
 from typing import List
@@ -39,12 +38,13 @@ def libraries(cuda: bool = True) -> List[native.NativeLib]:
 
 def build(cuda: bool = True) -> List[Path]:
     """Build `libraries(cuda)` (the ones not built yet, in parallel), load
-    each with ctypes and print its path and compiler log; returns the
-    paths. Raises where a compiler is missing or fails, or a library does
-    not load."""
-    paths = native.build(*libraries(cuda))
-    for path in paths:
-        ctypes.CDLL(str(path))
+    each with its entry points (`native.load`) and print its path and
+    compiler log; returns the paths. Raises where a compiler is missing or
+    fails, or a library or an entry point does not load."""
+    libs = libraries(cuda)
+    paths = native.build(*libs)
+    for lib, path in zip(libs, paths):
+        native.load(lib)
         log = path.with_suffix(".log")
         print(f"built {path}, loads; its compiler log {log}:", flush=True)
         print((log.read_text().strip() if log.is_file() else "") or "(empty)", flush=True)

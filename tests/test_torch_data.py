@@ -152,9 +152,9 @@ def test_record_limits_and_compact_sample_match(name):
 @pytest.fixture
 def numpy_rasterizers(monkeypatch):
     """Both packages on their numpy rasterizer."""
-    for rt in (t_runtime, j_runtime):
-        monkeypatch.setattr(rt, "_TRIED", True)
-        monkeypatch.setattr(rt, "_LIB", None)
+    monkeypatch.setattr(t_runtime, "load_library", lambda: None)
+    monkeypatch.setattr(j_runtime, "_TRIED", True)
+    monkeypatch.setattr(j_runtime, "_LIB", None)
 
 
 @pytest.mark.parametrize("name", list(CFGS))

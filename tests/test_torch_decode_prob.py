@@ -17,6 +17,7 @@ import torch
 
 from deepcut_tpu.ops.pallas_decode import decode_pose_pallas
 from deepcut_tpu.pose.decode import decode_pose as jax_decode
+from deepcut_tpu_torch import native
 from deepcut_tpu_torch.ops import cuda_decode
 from deepcut_tpu_torch.pose.decode import decode_pose_batch
 
@@ -140,16 +141,16 @@ def test_prob_entry_sizes_and_geometries_on_the_cpu():
     rng = np.random.RandomState(4)
     sm, loc = _maps("ties", rng, 3)
     prob, off = _nchw(sm), _nchw(loc)
-    cuda_decode.record_geometries(True)
+    native.record_geometries(True)
     try:
         a = cuda_decode.decode_pose(prob, off, [H, 5, 1], [W, 7, 2], 0.75)
         b = cuda_decode.decode_pose(prob, off, torch.tensor([H, 5, 1], dtype=torch.int32),
                                     torch.tensor([W, 7, 2], dtype=torch.int32), 0.75)
         assert torch.equal(a, b)
-        assert cuda_decode.geometries == {} and cuda_decode.prob_launches == 0
+        assert native.geometries == {} and cuda_decode.prob_launches == 0
     finally:
-        cuda_decode.record_geometries(False)
-    assert cuda_decode.geometries is None
+        native.record_geometries(False)
+    assert native.geometries is None
     assert cuda_decode._sizes("valid_h", torch.tensor([3, 4], dtype=torch.int32), 2) == [3, 4]
     with pytest.raises(ValueError, match="3 valid_h sizes for 2 images"):
         cuda_decode._sizes("valid_h", [1, 2, 3], 2)

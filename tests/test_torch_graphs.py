@@ -19,6 +19,7 @@ recording stub holds the order.
 """
 
 import contextlib
+import copy
 import sys
 import threading
 
@@ -26,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from deepcut_tpu_torch import native
 from deepcut_tpu_torch.constants import MEAN_BGR
 from deepcut_tpu_torch.models.resnet import DeeperCutConfig, init_params
 from deepcut_tpu_torch.ops import conv_epilogue, cuda_decode
@@ -116,7 +118,7 @@ def stubbed(monkeypatch):
         with torch.inference_mode():
             static_out = forward(static_in)
         return graphs.NetGraph(static_in, _StubGraph(forward, static_in, static_out),
-                               static_out, STUB_LAUNCHES)
+                               static_out, {"conv_epilogue": STUB_LAUNCHES})
 
     monkeypatch.setattr(graphs, "capture", capture)
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
@@ -203,9 +205,9 @@ def _counting_graphs(capacity):
         captured.append(tuple(chunk.shape[:3]))
         static_in = chunk.clone()
         static_out = fwd(static_in)
-        return graphs.NetGraph(static_in, _StubGraph(fwd, static_in, static_out), static_out, 0)
+        return graphs.NetGraph(static_in, _StubGraph(fwd, static_in, static_out), static_out, {})
 
-    return graphs.NetGraphs(forward, forward, capacity), captured, capture
+    return graphs.NetGraphs(forward, forward, capacity, lambda: True), captured, capture
 
 
 @pytest.mark.parametrize("shapes,rounds", [(3, 12), (10, 40)])
@@ -290,10 +292,38 @@ def test_graph_threads_get_the_serial_answers(stubbed):
     assert est.graph_stats["replays"] == 2 + 4 + 2 * 8 and est.graph_stats["captures"] == 2
 
 
+@pytest.mark.parametrize("graphed", [False, True], ids=["eager", "graphed"])
+def test_int8_copy_runs_its_own_model(graphed, request):
+    """A ``copy.copy`` quantized to int8 (the demo's and the HTTP service's
+    private estimator) runs its own int8 network, never its original's
+    forward or graphs, and counts its own calls; the original keeps its
+    graphs and its answers."""
+    if graphed:
+        request.getfixturevalue("stubbed")
+    est = _estimator()
+    frames = _frames(5)
+    want = _before_graphs(est, frames)
+    for _ in range(2):   # graphed: first sight, then captured
+        np.testing.assert_array_equal(est.estimate_pose_batch(frames), want)
+    held, stats = list(est._graphs.entries), dict(est.graph_stats)
+    q = copy.copy(est)
+    q.quantize_int8(frames[0])
+    want_q = _before_graphs(q, frames)
+    assert not np.array_equal(want_q, want)
+    for _ in range(3):
+        np.testing.assert_array_equal(q.estimate_pose_batch(frames), want_q)
+        np.testing.assert_array_equal(est.estimate_pose_batch(frames), want)
+    assert list(est._graphs.entries) == held
+    assert est.graph_stats == {**stats, ("replays" if graphed else "eager"): stats[
+        "replays" if graphed else "eager"] + 6}
+    assert q.graph_stats == ({"captures": 2, "replays": 4, "eager": 4} if graphed
+                             else {"captures": 0, "replays": 0, "eager": 6})
+
+
 def test_capture_counts_only_its_own_thread(monkeypatch):
-    """A capture keeps, and takes back off the counter, the launches its
-    own thread recorded; another thread's launches meanwhile stay counted
-    and stay out of the graph's count."""
+    """A capture keeps in its graph's tally, and out of the live counts,
+    the launches its own thread recorded (`native.tally`); another
+    thread's launches meanwhile stay counted and stay out of the tally."""
     class _Stream:
         def wait_stream(self, other):
             pass
@@ -313,31 +343,35 @@ def test_capture_counts_only_its_own_thread(monkeypatch):
     monkeypatch.setattr(torch.cuda, "graph", graph)
 
     def forward(x):
-        conv_epilogue.add_launches(STUB_LAUNCHES)   # as the forward's epilogues count
-        if capturing:                               # an eager forward elsewhere
-            t = threading.Thread(target=conv_epilogue.add_launches, args=(100,))
+        native.add_counts({"conv_epilogue": STUB_LAUNCHES})   # as the forward's epilogues count
+        if capturing:                                         # an eager forward elsewhere
+            t = threading.Thread(target=native.add_counts, args=({"conv_epilogue": 100},))
             t.start()
             t.join()
         return x * 2
 
     before = conv_epilogue.launches
     entry = graphs.capture(forward, torch.ones(1, 2, 2, 3), "pool")
-    assert entry.launches == STUB_LAUNCHES and entry.graph == "graph"
+    assert entry.launches == {"conv_epilogue": STUB_LAUNCHES} and entry.graph == "graph"
     # the warm-up's launches ran, the other thread's ran, the capture's did not
     assert conv_epilogue.launches - before == STUB_LAUNCHES + 100
-    conv_epilogue.add_launches(-(STUB_LAUNCHES + 100))
+    native.add_counts({"conv_epilogue": -(STUB_LAUNCHES + 100)})
 
 
 def test_add_launches_counts_from_threads():
+    """Eight threads count at once: the live count takes every launch
+    exactly, and each thread's tally holds its own launches alone."""
     before, mine = conv_epilogue.launches, {}
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
 
     def add(n):
-        start = conv_epilogue.thread_launches()
         for _ in range(2000):
-            conv_epilogue.add_launches(n)
-        mine[n] = conv_epilogue.thread_launches() - start
+            native.add_counts({"conv_epilogue": n})
+        with native.tally() as own:
+            for _ in range(2000):
+                native.add_counts({"conv_epilogue": n})
+        mine[n] = own["conv_epilogue"]
 
     try:
         threads = [threading.Thread(target=add, args=(n,)) for n in (3, -1, 5, -2, 7, 4, 2, -9)]
@@ -350,7 +384,7 @@ def test_add_launches_counts_from_threads():
         sys.setswitchinterval(old)
     assert conv_epilogue.launches - before == 2000 * 9
     assert mine == {n: 2000 * n for n in (3, -1, 5, -2, 7, 4, 2, -9)}   # each thread its own
-    conv_epilogue.add_launches(-2000 * 9)
+    native.add_counts({"conv_epilogue": -2000 * 9})
     assert conv_epilogue.launches == before
 
 
