@@ -316,6 +316,26 @@ TF32_CASES = [("res4 1x1", (1, 1024, 44, 44), (256, 1024, 1, 1), 0, 1, False),
 # 4608-term sums. A TF32 rounding of any value that is not bf16 (a Winograd
 # or FFT transform) errs by ~2**-11 = 4.9e-4 of that value, 10x above this.
 TF32_RTOL = 5e-5
+# conv3x3 (the trunk's 3x3 convs) against cuDNN's TF32 route (`exact_conv`)
+# at the geometries the kernel takes on the main path: (name, x (N, C, H, W),
+# Cout, dilation). Widths 64 to 512, dilation 1 and 2, batch 4 and 1 on the
+# 704 canvas, the tiled HD path's 720x1280 frame, and maps that are no
+# multiple of the kernel's 128-pixel tile or narrower than a tap's reach.
+CONV3X3_CASES = [("res2", (4, 64, 176, 176), 64, 1), ("res2 batch 1", (1, 64, 176, 176), 64, 1),
+                 ("res3", (4, 128, 88, 88), 128, 1), ("res3 batch 1", (1, 128, 88, 88), 128, 1),
+                 ("res4", (4, 256, 44, 44), 256, 1), ("res4 batch 1", (1, 256, 44, 44), 256, 1),
+                 ("res5 dilated", (4, 512, 44, 44), 512, 2),
+                 ("res5 dilated batch 1", (1, 512, 44, 44), 512, 2),
+                 ("res3 HD tile", (1, 128, 180, 320), 128, 1),
+                 ("res5 HD tile", (1, 512, 90, 160), 512, 2),
+                 ("odd map", (2, 128, 20, 13), 128, 1), ("9x11 map", (1, 64, 9, 11), 64, 1),
+                 ("dilated 9x7 map, Cout 512", (1, 256, 9, 7), 512, 2),
+                 ("dilated 7x5 map, Cout 128", (1, 64, 7, 5), 128, 2)]
+# The trunk's 3x3 convs at batch 4 and 1 on the 704 canvas: stage -> (C,
+# map, dilation, convs per forward).
+CONV3X3_STAGES = {"res2": (64, 176, 1, 3), "res3": (128, 88, 1, 8), "res4": (256, 44, 1, 36),
+                  "res5": (512, 44, 2, 3)}
+BF16_FLOPS = 989e12   # the H100 SXM's dense bf16 tensor-core rate (NVIDIA's data sheet)
 # Pose agreement between two bf16 runs of the same frame that differ only in
 # batch composition or path (batch of 4 against one, HTTP against direct).
 # cuDNN may pick other algorithms per batch size, so the bf16 maps can differ
@@ -401,7 +421,7 @@ def phase_device() -> str:
 def phase_build() -> None:
     """The command users run to build ahead, `python -m
     deepcut_tpu_torch.runtime.build`, as a process: it builds the
-    rasterizer (g++) and the three CUDA sources (nvcc), one compiler per
+    rasterizer (g++) and the four CUDA sources (nvcc), one compiler per
     source, all started together, loads each, and prints each library and
     its compiler log; it must exit 0."""
     t0 = time.perf_counter()
@@ -656,6 +676,61 @@ def check_tf32_exact() -> None:
             raise AssertionError(f"TF32 conv not exact on bf16 values at {name}: {rel}")
 
 
+def _conv3x3_case(gen, xs, cout, device="cuda"):
+    """bf16-valued x (channels_last) and a He-scaled bf16-valued
+    (Cout, C, 3, 3) weight."""
+    cl = torch.channels_last
+    x = torch.randn(xs, generator=gen, device=device).to(torch.bfloat16).float()
+    w = torch.randn((cout, xs[1], 3, 3), generator=gen, device=device) * (2.0 / (9 * xs[1])) ** 0.5
+    return x.contiguous(memory_format=cl), w.to(torch.bfloat16).float().contiguous(memory_format=cl)
+
+
+def _conv3x3_held(got, ref, x, w, dil, what: str) -> float:
+    """got against ref, two f32 sums of the same 9*C exact products in other
+    orders: each is within (K - 1) * 2**-24 * sum |x * w| of the exact sum,
+    so they differ by at most K * 2**-23 * (|x| conv |w|) per element.
+    Returns the largest difference as a share of that bound."""
+    from deepcut_tpu_torch.ops.conv import full_f32_conv
+
+    bound = 9 * x.shape[1] * 2.0 ** -23 * full_f32_conv(x.abs(), w.abs(), pad=dil, dilation=dil)
+    share = float(((got - ref).abs() / bound.clamp_min(2.0 ** -126)).max())
+    if not (share <= 1.0 and torch.isfinite(got).all()):
+        raise AssertionError(f"conv3x3 at {what}: max |diff| {float((got - ref).abs().max()):.3g}, "
+                             f"{share:.3g} of the reordered-sum bound")
+    return share
+
+
+def check_conv3x3() -> float:
+    """conv3x3 against `exact_conv`'s cuDNN route (TF32 on bf16 values) at
+    CONV3X3_CASES: within the reordered-sum bound (`_conv3x3_held`), two
+    launches bit-equal, the output channels_last; the packed weights unpack
+    to the originals. Returns the largest |diff| over max |ref|."""
+    from deepcut_tpu_torch.ops import conv3x3
+    from deepcut_tpu_torch.ops.conv import exact_conv
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    worst, worst_share = 0.0, 0.0
+    for name, xs, cout, dil in CONV3X3_CASES:
+        x, w = _conv3x3_case(gen, xs, cout)
+        wk = conv3x3.pack(w)
+        if not torch.equal(conv3x3.unpack(wk), w):
+            raise AssertionError(f"conv3x3 at {name}: the packed weights do not unpack to w")
+        got = conv3x3.conv3x3(x, wk, dil)
+        again = conv3x3.conv3x3(x, wk, dil)
+        ref = exact_conv(x, w, pad=dil, dilation=dil)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"conv3x3 at {name}: two launches differ")
+        if not got.is_contiguous(memory_format=torch.channels_last):
+            raise AssertionError(f"conv3x3 at {name}: the output is not channels_last")
+        worst_share = max(worst_share, _conv3x3_held(got, ref, x, w, dil, name))
+        worst = max(worst, float((got - ref).abs().max() / ref.abs().max()))
+    log(f"conv3x3 against cuDNN's TF32 route on {len(CONV3X3_CASES)} geometries: max |diff| / "
+        f"max |ref| {worst:.3g}, at most {worst_share:.3g} of the reordered-sum bound; two "
+        f"launches bit-equal")
+    return worst
+
+
 def _i8(gen, shape, memory_format=torch.channels_last) -> torch.Tensor:
     """Random int8 values in [-127, 127] on the card."""
     return torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8
@@ -770,7 +845,9 @@ def replay_path_geometries(recorded: dict, device: str = "cuda") -> dict:
     int8_epilogue, quantize_i8 and the decode's probability-map entry
     (`recorded`: the seam's record per kernel name, `native.geometries`;
     the decode's holds its views and valid sizes), replayed on fresh
-    random inputs against the plain version on the card, bit for bit.
+    random inputs against the plain version on the card, bit for bit; and
+    conv3x3's, whose sums run in another order than the plain f32 conv's:
+    two launches bit-equal, within `_conv3x3_held`'s bound of the plain.
     -> {kernel: number of geometries}. On the CPU (a rehearsal) both sides
     take the plain version."""
     from deepcut_tpu_torch.ops import conv_epilogue, int8_conv as ic
@@ -852,15 +929,33 @@ def replay_path_geometries(recorded: dict, device: str = "cuda") -> dict:
             raise AssertionError(f"decode (prob entry) differs from plain at the path's {pg} "
                                  f"loc {lg} valid {vh} x {vw} scale {scale}")
     done["decode_pose_prob"] = len(decode)
+    from deepcut_tpu_torch.ops import conv3x3
+    from deepcut_tpu_torch.ops.conv import full_f32_conv
+
+    convs = recorded.get("conv3x3", {})
+    for (xg, wshape, dil) in convs:
+        x = _view(xg, randn(1, torch.bfloat16))
+        cout, cin = wshape[0], wshape[3]
+        w = (torch.randn((cout, cin, 3, 3), generator=gen, device=device) * (2.0 / (9 * cin)) ** 0.5
+             ).to(torch.bfloat16).float()
+        wk = conv3x3.pack(w)
+        got, again = conv3x3.conv3x3(x, wk, dil), conv3x3.conv3x3(x, wk, dil)
+        if not torch.equal(got, again):
+            raise AssertionError(f"conv3x3 differs from itself at the path's {xg} {wshape} d={dil}")
+        _conv3x3_held(got, full_f32_conv(x, w, pad=dil, dilation=dil), x, w, dil,
+                      f"the path's {xg} {wshape} d={dil}")
+    done["conv3x3"] = len(convs)
     log(f"the main paths' launch geometries replayed against the plain versions on fresh "
-        f"random inputs, bit-equal: {done}")
+        f"random inputs, bit-equal (conv3x3: two launches bit-equal, within the reordered-sum "
+        f"bound of the plain): {done}")
     return done
 
 
 def phase_kernels_vs_plain() -> dict:
     errs = {"decode_pose_prob": check_decode_prob(), "decode_pose": check_decode_fused(),
             "conv_epilogue": check_conv_epilogue(), "int8_im2col": check_int8_im2col(),
-            "int8_epilogue": check_int8_epilogue(), "quantize_i8": check_quantize_i8()}
+            "int8_epilogue": check_int8_epilogue(), "quantize_i8": check_quantize_i8(),
+            "conv3x3": check_conv3x3()}
     check_tf32_exact()
     return errs
 
@@ -1484,6 +1579,15 @@ CAFFENET_BF16_PROB_TOL = 0.02
 # graph is held in steps at each map's largest magnitude: read on the card,
 # 1 (fc_pose) and 2 (loc_pred), 5% of elements apart. Held to 4.
 FUSED_MAX_STEPS = 4
+# The native forward against itself on the graph engine's routes (every
+# conv on cuDNN, `_cudnn_routes`): the trunk's 50 3x3 convs on conv3x3 sum
+# their exact products in another order, so, as with fuse_siblings, a
+# bf16 rounding that moves propagates through the later blocks. Held in
+# steps at each map's largest magnitude, as the fused graph is. Read on the
+# card (NVIDIA H100 80GB HBM3, 700.00 W): fc_pose 2.5, loc_pred 3, 79-81%
+# of elements apart, where fuse_siblings' 6 reordered convs read 1 and 2;
+# held to 8.
+CONV3X3_MAP_STEPS = 8
 # The graph's f32 forward() against the native f32 forward (TF32 off) of the
 # same weights: the same f32 convolutions, but the graph applies BatchNorm
 # and Scale as two layers where the native forward folds them into one
@@ -1693,9 +1797,25 @@ def _against_native(what: str, got: dict, want: dict, *, element_steps=None, map
             raise AssertionError(f"G2: {what} {k} outside the tolerance")
 
 
+@contextlib.contextmanager
+def _cudnn_routes():
+    """The native forward on the graph engine's conv routes: conv3x3's rule
+    off for the block, so every conv runs `exact_conv` (cuDNN)."""
+    from deepcut_tpu_torch.ops import conv3x3
+
+    rule = conv3x3.engages
+    conv3x3.engages = lambda *args, **kwargs: False
+    try:
+        yield
+    finally:
+        conv3x3.engages = rule
+
+
 def phase_graph_serving(g: dict, device: str = "cuda") -> dict:
     """G2: the serving chain without and with fuse_siblings against the
-    native DeeperCut bf16 forward of the same weights on one frame."""
+    native DeeperCut bf16 forward of the same weights on one frame, on the
+    graph's conv routes (cuDNN, `_cudnn_routes`); and the native forward
+    on its own routes (the 3x3 convs on conv3x3) against that."""
     from deepcut_tpu_torch.models.resnet import fold_bn
 
     cfg, x, heads = g["cfg"], g["x"], g["heads"]
@@ -1705,8 +1825,18 @@ def phase_graph_serving(g: dict, device: str = "cuda") -> dict:
     on_device = {n: {k: v.to(device) for k, v in e.items()} for n, e in g["params"].items()}
     native = DeeperCut(fold_bn(on_device, cfg), cfg).to(device, memory_format=g["cl"])
     with torch.inference_mode():
-        want = native(x.contiguous(memory_format=g["cl"]), heads=("pose", "locref"))
+        own = native(x.contiguous(memory_format=g["cl"]), heads=("pose", "locref"))
+        with _cudnn_routes():
+            want = native(x.contiguous(memory_format=g["cl"]), heads=("pose", "locref"))
     del native
+    for k in ("fc_pose", "loc_pred"):
+        top = float(want[k].abs().max())
+        steps = float((own[k] - want[k]).abs().max()) / _bf16_step(top)
+        log(f"G2 native bf16 {k}, its 3x3 convs on conv3x3 against cuDNN: "
+            f"{float((own[k] != want[k]).float().mean()):.6f} of elements differ; {steps:.3g} "
+            f"bf16 steps at the map's largest magnitude {top:.4g} (held to {CONV3X3_MAP_STEPS})")
+        if not steps <= CONV3X3_MAP_STEPS:
+            raise AssertionError(f"G2: the native {k} on conv3x3 outside the tolerance")
     plain, counts = _serving_graph(g["proto"], g["weights"], device, heads, fuse=False)
     got = plain.make_forward(heads + [t for pair in HEAD_TERMS.values() for t in pair])(
         plain.params, {"data": x})
@@ -3922,8 +4052,12 @@ def phase_spatial(root: Path, card: str, device: str = "cuda", depth: int = 152,
     with open(spec_path, "wb") as f:
         pickle.dump(spec, f)
     t0 = time.perf_counter()
-    single = {"s1": _s1_pose(spec, None), "s2": _s2_graph(spec, None),
-              "s3": _s3_serving(spec, None)}
+    single = {"s1": _s1_pose(spec, None), "s2": _s2_graph(spec, None)}
+    # one process's serving on the ranks' conv routes: their row blocks'
+    # halo geometry leaves conv3x3's rule, so every conv is cuDNN's
+    # (conv3x3 against cuDNN is phase G's `CONV3X3_MAP_STEPS`)
+    with _cudnn_routes():
+        single["s3"] = _s3_serving(spec, None)
     if device == "cuda":
         torch.cuda.empty_cache()
     t1 = time.perf_counter()
@@ -4332,7 +4466,48 @@ def kernel_times(card: str) -> dict:
         f"call, device time {dev}, plain PyTorch "
         f"{plain_ms * 1000:.2f} us, bound {out['conv_epilogue']['bound_ms'] * 1000:.2f} us "
         f"(reads y and the residual, writes y)")
+    out["conv3x3"] = conv3x3_times(card)
     return out
+
+
+def conv3x3_times(card: str) -> dict:
+    """conv3x3 at each stage of the trunk (CONV3X3_STAGES), batch 4 and 1
+    on the 704 canvas: device time per conv from a CUDA graph of 20
+    launches (no host time) beside cuDNN's TF32 route (`exact_conv`, the
+    route it replaces, as `library_ms`) and the FLOP bound at the card's
+    bf16 rate; the sums over a forward's 50 convs. The JSON record's
+    shape is res4 at batch 4, the stage of 36 of the 50."""
+    from deepcut_tpu_torch.ops import conv3x3
+    from deepcut_tpu_torch.ops.conv import exact_conv
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    record, sums = None, {}
+    for n in (4, 1):
+        for stage, (c, hw, dil, convs) in CONV3X3_STAGES.items():
+            x, w = _conv3x3_case(gen, (n, c, hw, hw), c)
+            wk = conv3x3.pack(w)
+            with torch.inference_mode():
+                ms = {"conv3x3": _graph_device_ms(lambda: [conv3x3.conv3x3(x, wk, dil)
+                                                           for _ in range(20)]) / 20,
+                      "cudnn": _graph_device_ms(lambda: [exact_conv(x, w, pad=dil, dilation=dil)
+                                                         for _ in range(20)]) / 20}
+            flops = 2.0 * n * hw * hw * c * c * 9
+            bound_ms = flops / BF16_FLOPS * 1e3
+            for k, v in ms.items():
+                sums[(n, k)] = sums.get((n, k), 0.0) + v * convs
+            log(f"time [{card}]: conv3x3 {stage} batch {n} ({n}, {c}, {hw}, {hw}) d={dil}: "
+                f"{ms['conv3x3'] * 1000:.2f} us a conv ({flops / ms['conv3x3'] / 1e9:.0f} "
+                f"TFLOP/s, {100 * bound_ms / ms['conv3x3']:.1f}% of the bf16 peak), cuDNN's "
+                f"TF32 route {ms['cudnn'] * 1000:.2f} us ({ms['cudnn'] / ms['conv3x3']:.2f}x), "
+                f"FLOP bound {bound_ms * 1000:.2f} us (device time, CUDA graph of 20)")
+            if (n, stage) == (4, "res4"):
+                plain_ms = _events_ms(lambda: conv3x3.conv3x3_plain(x, wk, dil), 20)
+                record = dict(shape=[n, c, hw, hw], ms=ms["conv3x3"], plain_ms=plain_ms,
+                              library_ms=ms["cudnn"], bound_ms=bound_ms)
+        k, c = sums[(n, "conv3x3")], sums[(n, "cudnn")]
+        log(f"time [{card}]: conv3x3, a forward's 50 3x3 convs at batch {n} on the 704 canvas: "
+            f"{k:.4f} ms, cuDNN's TF32 route {c:.4f} ms, {c / k:.2f}x")
+    return record
 
 
 def prob_entry_times(card: str) -> dict:
@@ -4584,20 +4759,27 @@ def _eager(est):
         del est._graphable
 
 
+# the seam's name of each kernel the pose network launches -> its device
+# kernel's name
+NET_KERNELS = {"conv_epilogue": "conv_epilogue_kernel", "conv3x3": "conv3x3_kernel"}
+
+
 def _epilogue_kernels(fn, steps: int, tries: int = 3):
-    """(profiler busy ms, device ops, conv_epilogue_kernel device events,
-    conv_epilogue's counter) per call of `fn` over the same calls, read
+    """(profiler busy ms, device ops, {kernel: (device events, the seam's
+    count)}) per call of `fn` over the same calls for NET_KERNELS, read
     again where the tracer lost launches (`_device_profile`)."""
-    from deepcut_tpu_torch.ops import conv_epilogue
+    from deepcut_tpu_torch import native
 
     for _ in range(tries):
-        before = conv_epilogue.launches
+        before = native.counts()
         busy, ops, ranked = _device_profile(fn, steps=steps, top=10**6)
-        counted = (conv_epilogue.launches - before) / (2 * steps)   # warm-up and active
-        traced = sum(n for name, _, n in ranked if "conv_epilogue_kernel" in name)
-        if traced == counted:
+        after = native.counts()
+        events = {k: (sum(n for name, _, n in ranked if device in name),
+                      (after.get(k, 0) - before.get(k, 0)) / (2 * steps))   # warm-up and active
+                  for k, device in NET_KERNELS.items()}
+        if all(traced == counted for traced, counted in events.values()):
             break
-    return busy, ops, traced, counted
+    return busy, ops, events
 
 
 def _graph_hits(est, fn, what: str):
@@ -4769,18 +4951,25 @@ def phase_pose_graphs(card: str, rng=None) -> None:
             raise AssertionError(f"P: the graphed network's profiler busy {busy_g:.4f} ms is "
                                  f"more than 3% off {name} {ref:.4f} ms")
     batch8 = calls[1][1]
-    busy8_g, ops8_g, traced_g, counted_g = _epilogue_kernels(batch8, steps=5)
+    busy8_g, ops8_g, events_g = _epilogue_kernels(batch8, steps=5)
     with _eager(est):
-        busy8_e, ops8_e, traced_e, counted_e = _epilogue_kernels(batch8, steps=5)
+        busy8_e, ops8_e, events_e = _epilogue_kernels(batch8, steps=5)
     log(f"P estimate_pose_batch, 8 frames: profiler busy per frame graphed {busy8_g / 8:.4f} ms "
         f"({ops8_g:.0f} device ops a call), eager {busy8_e / 8:.4f} ms ({ops8_e:.0f}); "
-        f"conv_epilogue_kernel device events per call graphed {traced_g:g} (counter "
-        f"{counted_g:g}), eager {traced_e:g} (counter {counted_e:g})")
+        + "; ".join(f"{NET_KERNELS[k]} device events per call graphed {events_g[k][0]:g} (counter "
+                    f"{events_g[k][1]:g}), eager {events_e[k][0]:g} (counter {events_e[k][1]:g})"
+                    for k in NET_KERNELS))
     if abs(busy8_g - busy8_e) > 0.03 * busy8_e:
         raise AssertionError("P: estimate_pose_batch's busy per frame graphed is more than 3% "
                              "off the eager path's")
-    if not traced_g == counted_g == traced_e == counted_e:
-        raise AssertionError("P: the profiler's conv_epilogue kernels and the counter disagree")
+    for k in NET_KERNELS:
+        if not events_g[k][0] == events_g[k][1] == events_e[k][0] == events_e[k][1]:
+            raise AssertionError(f"P: the profiler's {NET_KERNELS[k]} events and the counter "
+                                 f"disagree")
+    # two chunks of 4 at 704: each chunk's 50 3x3 convs
+    if events_g["conv3x3"][1] != 100:
+        raise AssertionError(f"P: {events_g['conv3x3'][1]:g} conv3x3 launches a call of 8 "
+                             f"frames, not 50 a chunk")
 
     # wall time per call, in turns: eager, graphed, graphed, eager
     for what, fn, frames in (("estimate_pose_batch, 8 frames", batch8, 8),
@@ -5029,13 +5218,15 @@ KERNELS = {  # name -> (source, what it replaces)
     "decode_pose": ("deepcut_tpu_torch/csrc/decode_pose.cu", "deepcut_tpu/ops/pallas_decode.py:63"),
     "decode_pose_prob": ("deepcut_tpu_torch/csrc/decode_pose.cu",
                          "deepcut_tpu/ops/pallas_decode.py:63"),
+    "conv3x3": ("deepcut_tpu_torch/csrc/conv3x3.cu",
+                "deepcut_tpu/ops/conv.py:83 (no TPU kernel: XLA's bf16 conv; cuDNN's here)"),
 }
 
 
 # the seam's kernel names (`native.counts`) under the names this check logs
 COUNTED = {"conv_epilogue": "conv_epilogue", "decode_pose": "decode_fused",
            "decode_pose_prob": "decode_pose", "int8_im2col": "int8_im2col",
-           "int8_epilogue": "int8_epilogue", "quantize_i8": "quantize_i8"}
+           "int8_epilogue": "int8_epilogue", "quantize_i8": "quantize_i8", "conv3x3": "conv3x3"}
 
 
 def _counts() -> dict:
@@ -5157,21 +5348,24 @@ def main() -> int:
         f"{engine}")
     if any(engine.values()):   # f32 training: no bf16 rounding, no int8
         raise AssertionError(f"the engine's f32 training launched {engine}")
+    # conv3x3 serves the float network's trunk alone: the int8 network, the
+    # row-sharded trunk (its halo leaves no padding on H) and training skip it
+    no_3x3 = [k for k in KERNELS if k != "conv3x3"]
     for path, counts, need in (("serving", serving, ("conv_epilogue", "decode_pose",
-                                                     "decode_pose_prob")),
-                               ("int8 serving", int8, KERNELS),
+                                                     "decode_pose_prob", "conv3x3")),
+                               ("int8 serving", int8, no_3x3),
                                ("training", training, ("conv_epilogue", "decode_pose")),
                                ("graph engine", graph, ("conv_epilogue", "quantize_i8",
                                                         "int8_im2col", "int8_epilogue")),
                                ("data slice", data, ("conv_epilogue",)),
-                               ("examples", examples, KERNELS),
+                               ("examples", examples, no_3x3),
                                ("MatCaffe + data-parallel", matcaffe_dp, ("decode_pose",)),
-                               ("spatial", spatial, KERNELS)):
+                               ("spatial", spatial, no_3x3)):
         idle = [k for k in need if counts[k] == 0]
         if idle:
             raise AssertionError(f"the {path} path never launched {idle}")
     make_fwd = phase_make_forward(est, rng)      # counts zeroed and read inside
-    idle = [k for k in ("conv_epilogue", "decode_pose") if make_fwd[k] == 0]
+    idle = [k for k in ("conv_epilogue", "decode_pose", "conv3x3") if make_fwd[k] == 0]
     if idle:
         raise AssertionError(f"the make_forward path never launched {idle}")
     phase_pose_graphs(card, rng)
@@ -5198,7 +5392,8 @@ def main() -> int:
          "shape": times[name]["shape"],
          "max_abs_err": errs[name],
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
-         "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",
+         "bound_ms": times[name]["bound_ms"],
+         "bound_by": "FLOPs" if name == "conv3x3" else "bytes",
          "library_ms": times[name]["library_ms"]}
         for name, (src, rep) in KERNELS.items()]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

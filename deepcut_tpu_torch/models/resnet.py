@@ -37,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from deepcut_tpu_torch.constants import MEAN_BGR
 from deepcut_tpu_torch.ops.activations import relu, sigmoid
+from deepcut_tpu_torch.ops import conv3x3
 from deepcut_tpu_torch.ops.conv import conv2d, conv2d_rounded, deconv2d, deconv2d_rounded
 from deepcut_tpu_torch.ops.eltwise import crop_like
 from deepcut_tpu_torch.ops.norm import bn_scale_affine, scaled_stats
@@ -467,10 +468,19 @@ class DeeperCut(nn.Module):
                 for k, v in p.items()})
             for name, p in params.items()})
         self._view: Optional[Params] = None
+        self._pack()
 
     def _apply(self, fn, recurse=True):
         self._view = None
-        return super()._apply(fn, recurse)
+        out = super()._apply(fn, recurse)
+        self._pack()
+        return out
+
+    def _pack(self) -> None:
+        """On the card, the serving forward's 3x3 weights packed for
+        `ops.conv3x3` once, here, not per call (nor in a graph's capture)."""
+        if _rounds_once(self.cfg, self.folded):
+            conv3x3.warm(p["w"] for p in self.layers.values() if "w" in p)
 
     def param_dict(self) -> Params:
         """The parameters as a plain ``{layer: {key: Parameter}}`` dict (the

@@ -24,7 +24,10 @@ that call alone (TF32 keeps 10 mantissa bits and bf16 7, so every product
 is exact and the sum is f32, as XLA's bf16 conv with
 ``preferred_element_type=f32``), and `ops.conv_epilogue` adds the f32 bias,
 rounds to bf16 once and applies the optional residual and ReLU. On the CPU
-the convolution is a plain f32 `F.conv2d`.
+the convolution is a plain f32 `F.conv2d`. On the card the trunk's 3x3
+convs (stride 1, padding = dilation, widths multiples of 64) take the
+hand-written `ops.conv3x3` kernel in place of cuDNN; the graph engine,
+which calls `exact_conv` itself, keeps cuDNN.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from deepcut_tpu_torch.core.fillers import bilinear
+from deepcut_tpu_torch.ops import conv3x3
 from deepcut_tpu_torch.ops.conv_epilogue import conv_epilogue
 
 
@@ -166,8 +170,14 @@ def conv2d_rounded(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] =
                    residual: Optional[torch.Tensor] = None, relu: bool = False) -> torch.Tensor:
     """The serving conv: `exact_conv` then `conv_epilogue` (bias, one bf16
     rounding, optional residual add rounded again, optional ReLU). x and
-    residual hold bf16 values in f32; so does the result."""
-    y = exact_conv(x, w, stride=stride, pad=pad, dilation=dilation, groups=groups)
+    residual hold bf16 values in f32; so does the result. On the card a
+    convolution that `conv3x3.engages` takes (the trunk's 3x3 convs) runs
+    on that kernel, over x in channels_last, in place of cuDNN."""
+    if conv3x3.engages(x, w, stride, pad, dilation, groups):
+        x = x.contiguous(memory_format=torch.channels_last)
+        y = conv3x3.conv3x3(x, conv3x3.packed(w), _pair(dilation)[0])
+    else:
+        y = exact_conv(x, w, stride=stride, pad=pad, dilation=dilation, groups=groups)
     return conv_epilogue(y, b, residual, relu)
 
 

@@ -5,11 +5,12 @@
 Counterpart of `deepcut_tpu.runtime.build`. The port otherwise builds each
 library lazily, at its first call (`deepcut_tpu_torch.native`), so a
 service would pay g++ and nvcc on its first request. This command builds
-all four into ``build/deepcut_tpu_torch/`` at once, one compiler process
+all five into ``build/deepcut_tpu_torch/`` at once, one compiler process
 per source, all started together: the C++ target rasterizer (g++,
-`runtime.LIB`) and the three CUDA sources for ``sm_90a`` (the decode
-`ops.cuda_decode.LIB`, the serving conv's epilogue `ops.conv_epilogue.LIB`
-and the int8 conv's pieces `ops.int8_conv.LIB`). A library already built
+`runtime.LIB`) and the four CUDA sources for ``sm_90a`` (the decode
+`ops.cuda_decode.LIB`, the serving conv's epilogue `ops.conv_epilogue.LIB`,
+the int8 conv's pieces `ops.int8_conv.LIB` and the trunk's 3x3 convs
+`ops.conv3x3.LIB`). A library already built
 from the same source and flags is kept. It prints each library's path and
 its compiler log, and exits 0 only when each one loads. Without nvcc it
 fails and says so; it never skips a library.
@@ -25,14 +26,14 @@ from deepcut_tpu_torch import native
 
 
 def libraries(cuda: bool = True) -> List[native.NativeLib]:
-    """The host rasterizer and, with `cuda`, the three CUDA libraries."""
+    """The host rasterizer and, with `cuda`, the four CUDA libraries."""
     from deepcut_tpu_torch import runtime
 
     libs = [runtime.LIB]
     if cuda:
-        from deepcut_tpu_torch.ops import conv_epilogue, cuda_decode, int8_conv
+        from deepcut_tpu_torch.ops import conv3x3, conv_epilogue, cuda_decode, int8_conv
 
-        libs += [cuda_decode.LIB, conv_epilogue.LIB, int8_conv.LIB]
+        libs += [cuda_decode.LIB, conv_epilogue.LIB, int8_conv.LIB, conv3x3.LIB]
     return libs
 
 

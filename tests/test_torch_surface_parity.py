@@ -291,7 +291,7 @@ def test_runtime_build_builds_and_loads_the_host_library():
     paths = t_build.build(cuda=False)
     assert paths == [runtime.LIB.path()] and paths[0].is_file()
     assert [lib.source.name for lib in t_build.libraries()] == [
-        "rasterizer.cpp", "decode_pose.cu", "conv_epilogue.cu", "int8_conv.cu"]
+        "rasterizer.cpp", "decode_pose.cu", "conv_epilogue.cu", "int8_conv.cu", "conv3x3.cu"]
     assert runtime.available()
     cfg = t_targets.TargetConfig(location_refinement=True)
     rec = _port_record(_record(np.random.RandomState(3)))
